@@ -9,8 +9,10 @@ end on the card, through the entry points a user calls:
 2. build   - compiles the CUDA kernels from ``musicfpaugment_torch/csrc``;
 3. kernels - each prune kernel against its plain PyTorch version on the same
              card tensors, at the shapes the path gives it (a 128-query
-             batch of 8 s crops; a 64-track ingest batch of 20-30 s tracks,
-             mixed lengths), with times, bounds and mismatch counts;
+             batch of 8 s crops; the 512 rows of that batch's 4 stacked
+             shifts, 251 and 250 columns; a 64-track ingest batch of
+             20-30 s tracks, mixed lengths), with times, bounds and mismatch
+             counts, which must be 0;
 4. ingest  - 10,000 synthetic 20-30 s tracks, generated on the card, indexed
              by ``create_fp_database`` into a full 2^20 x 100 ``HashTable``;
 5. match   - ``compute_accuracy_batched`` (batch 128, 4 shifts) over 1,024
@@ -21,9 +23,16 @@ end on the card, through the entry points a user calls:
              wall time, device time, the card's busy share, the top ops.
 
 Every phase prints a JSON line. Launch counters are zeroed just before
-ingest and read after match: both kernels must have launched in each.
+ingest and read after match: both kernels must have launched in each (once
+per ingest batch, once per match batch whatever the number of shifts).
 The line before the last is the kernel table, the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
+
+In the kernel table ``ms``, ``plain_ms`` and ``bound_ms`` are those of the
+shape the match path launches (512 stacked rows), ``ms`` the launch on the
+time-major tensors as the path calls it and ``wrapper_ms`` the (B, F, C)
+wrapper with its transposed copies; ``query_*`` and ``ingest_*`` are the same
+readings at the other two shapes.
 """
 
 from __future__ import annotations
@@ -64,7 +73,6 @@ SHIFTS = 4
 CORPUS_SEED = 2023
 UNSEEN_SEED = 4049
 MIN_CLEAN_ACCURACY = 0.99  # the JAX package's 106k-track proof measured 1.0
-MAX_MISMATCH_FRACTION = 1e-4  # the JAX package's kernel-vs-scan bound
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32 outside the
 # tensor cores
@@ -116,22 +124,17 @@ def crops_of(tracks, ids, offsets) -> list:
     return [tracks[int(t)][int(o) : int(o) + n] for t, o in zip(ids, offsets)]
 
 
-def prune_work(x, fwd, bwd, vf, maxpks: int = 5):
+def prune_work(x, fwd, bwd, vf):
     """Bytes each prune must move and f32 operations it does on these
-    inputs (counted from this run's masks)."""
+    inputs (counted from this run's masks: one argmax round and one bump per
+    forward peak, one bump per kept peak)."""
     B, F, C = x.shape
     cells = B * F * C
-    vf = torch.full((B,), C, device=x.device) if vf is None else vf.long()
-    fwd_cols = fwd.sum(dim=1)  # (B, C) peaks per column
-    valid_cols = int(vf.sum())
-    tested = int(fwd_cols.sum())
+    valid_cols = B * C if vf is None else int(vf.sum())
+    tested = int(fwd.sum())
     spread = 2 * B * F * F  # initial envelope
-    fwd_rounds = tested + int((fwd_cols < maxpks).sum())
-    fwd_ops = 5 * cells + F * fwd_rounds + 2 * F * tested + spread
-    cols = torch.arange(C, device=x.device)
-    live = cols[None, :] < vf[:, None]
-    bwd_rounds = tested + int(((fwd_cols < maxpks) & live).sum())
-    bwd_ops = 2 * F * valid_cols + F * bwd_rounds + 2 * F * int(bwd.sum()) + spread
+    fwd_ops = 5 * cells + F * tested + 2 * F * tested + spread
+    bwd_ops = 2 * F * valid_cols + F * tested + 2 * F * int(bwd.sum()) + spread
     fwd_bytes = cells * 4 + cells + F * 4
     bwd_bytes = cells * 4 + 2 * cells + F * 4 + B * 4
     return (fwd_bytes, fwd_ops), (bwd_bytes, bwd_ops)
@@ -143,38 +146,58 @@ def bound(bytes_, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_kernels(name, x, vf):
-    """Kernel vs plain on the same card tensors at one path shape."""
+def check_kernels(name, x, vf, sm_mhz):
+    """Kernel vs plain on the same card tensors at one path shape: 0
+    mismatching cells required. ``ms`` times the (B, F, C) wrapper (the
+    transposed copies and the launch), ``kernel_ms`` the launch alone on the
+    time-major tensors, as the path calls it, ``step_cycles_at_max_clock``
+    that launch per column of the longest row, reckoned at the card's maximum
+    SM clock (the clock the run had is not read)."""
     a_dec = P.prune_decay(20.0, 256)
     fk = K.forward_prune_cuda(x, a_dec)
     fp = P.forward_prune(x, a_dec, 30.0, 5)
     bk = K.backward_prune_cuda(x, fp, a_dec, 30.0, 5, vf)
     bp = P.backward_prune(x, fp, a_dec, 30.0, 5, vf)
+    tm = x.transpose(1, 2).contiguous()
+    fk_tm = K.forward_prune_tm(tm, a_dec)
+    bk_tm = K.backward_prune_tm(tm, fk_tm, a_dec, 30.0, 5, vf)
     torch.cuda.synchronize()
     (fb, fo), (bb, bo) = prune_work(x, fp, bp, vf)
+    steps = x.shape[2] if vf is None else int(vf.max())
     out = {}
-    for kname, got, want, kfn, pfn, nbytes, nops in (
-        ("forward_prune", fk, fp,
+    for kname, got, got_tm, want, kfn, tmfn, pfn, nbytes, nops in (
+        ("forward_prune", fk, fk_tm, fp,
          lambda: K.forward_prune_cuda(x, a_dec),
+         lambda: K.forward_prune_tm(tm, a_dec),
          lambda: P.forward_prune(x, a_dec, 30.0, 5), fb, fo),
-        ("backward_prune", bk, bp,
+        ("backward_prune", bk, bk_tm, bp,
          lambda: K.backward_prune_cuda(x, fp, a_dec, 30.0, 5, vf),
+         lambda: K.backward_prune_tm(tm, fk_tm, a_dec, 30.0, 5, vf),
          lambda: P.backward_prune(x, fp, a_dec, 30.0, 5, vf), bb, bo),
     ):
-        mism = int((got != want).sum())
+        mism = int((got != want).sum()) + int((K.as_bool_masks(got_tm) != want).sum())
         b_ms, b_by = bound(nbytes, nops)
+        kernel_ms = gpu_ms(tmfn, 20)
         out[kname] = {
             "shape": name, "B": x.shape[0], "F": x.shape[1], "C": x.shape[2],
-            "mismatch": mism, "mismatch_fraction": mism / want.numel(),
+            "mismatch": mism,
             "max_abs_err": float((got.float() - want.float()).abs().max()),
             "peaks": int(want.sum()),
-            "ms": gpu_ms(kfn, 20), "plain_ms": gpu_ms(pfn, 2),
+            "ms": gpu_ms(kfn, 20), "kernel_ms": kernel_ms,
+            "step_cycles_at_max_clock": kernel_ms * 1e-3 * sm_mhz * 1e6 / steps,
+            "plain_ms": gpu_ms(pfn, 2),
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": nops,
         }
-        if mism / want.numel() > MAX_MISMATCH_FRACTION:
+        if mism:
             fail(f"{kname} at the {name} shape disagrees with its plain version "
                  f"in {mism} cells")
     return out
+
+
+def plain_tm(mask: torch.Tensor) -> torch.Tensor:
+    """(B, F, C) bool mask of a plain prune -> the (B, C, F) 0/1 bytes the
+    kernels' route carries."""
+    return mask.transpose(1, 2).to(torch.uint8).contiguous()
 
 
 def _device_us(evt) -> float:
@@ -211,10 +234,15 @@ def profile_call(label: str, fn) -> dict:
             for e in sorted(evts, key=_device_us, reverse=True)[:n]
         ]
 
+    prune_ms = sum(
+        _device_us(e) for e in on_card if "fwd_kernel" in e.key or "bwd_kernel" in e.key
+    ) / 1e3
     return {
         "phase": "profile", "call": label, "wall_ms": wall_ms,
         "traced_wall_ms": traced_ms, "device_ms": device_ms,
         "busy_share": device_ms / traced_ms,
+        "prune_kernels_device_ms": prune_ms,
+        "prune_kernels_share_of_device": prune_ms / device_ms,
         "top_ops": top(host_ops), "top_kernels": top(on_card),
     }
 
@@ -232,8 +260,14 @@ def main() -> None:
     )
     smi_line = smi.stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    sm_mhz = float(clk.stdout.strip().splitlines()[0])
     emit({"phase": "device", "name": kind, "nvidia_smi": smi_line,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "max_sm_mhz": sm_mhz, "torch": torch.__version__,
+          "cuda": torch.version.cuda})
 
     # ---- 2. build
     t0 = time.perf_counter()
@@ -265,9 +299,16 @@ def main() -> None:
     )
     vf_ing = torch.as_tensor(valid_frames_for(valid.astype(np.int64)), dtype=torch.int32, device=dev)
     x_ingest = P.prune_input(ing, valid_frames=vf_ing)
-    at_query = check_kernels("query", x_query, None)
-    at_ingest = check_kernels("ingest", x_ingest, vf_ing)
-    emit({"phase": "kernels", "query": at_query, "ingest": at_ingest})
+    # the 4 shifts of the query batch as match_waveforms stacks them
+    offs = [int(s / SHIFTS * 256) for s in range(SHIFTS)]
+    x_stacked, vf_stacked, n_cols = P.stacked_prune_input([q_batch[:, o:] for o in offs])
+    if tuple(x_stacked.shape) != (SHIFTS * QUERY_BATCH, 256, 251) or n_cols != [251, 250, 250, 250]:
+        fail(f"unexpected stacked shape {tuple(x_stacked.shape)}, columns {n_cols}")
+    at_query = check_kernels("query", x_query, None, sm_mhz)
+    at_stacked = check_kernels("stacked", x_stacked, vf_stacked, sm_mhz)
+    at_ingest = check_kernels("ingest", x_ingest, vf_ing, sm_mhz)
+    emit({"phase": "kernels", "query": at_query, "stacked": at_stacked,
+          "ingest": at_ingest})
 
     # ---- 4. ingest (launch counters zeroed just before the main path)
     K.reset_launch_counts()
@@ -309,15 +350,18 @@ def main() -> None:
 
     # one batch again with the plain prunes on the card: same verdicts
     kernel_v = dm.match_waveforms(q_batch, shifts=SHIFTS)
-    fwd_k, bwd_k = K.forward_prune_cuda, K.backward_prune_cuda
-    K.forward_prune_cuda = lambda x, a, f=30.0, m=5: P.forward_prune(x, a, f, m)
-    K.backward_prune_cuda = (
-        lambda x, p, a, f=30.0, m=5, vf=None: P.backward_prune(x, p, a, f, m, vf)
-    )
+    fwd_k, bwd_k = K.forward_prune_tm, K.backward_prune_tm
+    K.forward_prune_tm = lambda tm, a, f=30.0, m=5: plain_tm(
+        P.forward_prune(tm.transpose(1, 2), a, f, m))
+    K.backward_prune_tm = lambda tm, p, a, f=30.0, m=5, vf=None: plain_tm(
+        P.backward_prune(tm.transpose(1, 2), K.as_bool_masks(p), a, f, m, vf))
+    K.reset_launch_counts()
     try:
         plain_v = dm.match_waveforms(q_batch, shifts=SHIFTS)
     finally:
-        K.forward_prune_cuda, K.backward_prune_cuda = fwd_k, bwd_k
+        K.forward_prune_tm, K.backward_prune_tm = fwd_k, bwd_k
+    if any(K.LAUNCHES.values()):
+        fail("the plain re-run launched a kernel")
     emit({
         "phase": "match", "queries": N_QUERIES, "shifts": SHIFTS, "accuracy": acc,
         "seconds": match_s, "queries_per_s": N_QUERIES / match_s,
@@ -352,7 +396,7 @@ def main() -> None:
 
     kernels = []
     for kname, line in (("forward_prune", 60), ("backward_prune", 113)):
-        q, i = at_query[kname], at_ingest[kname]
+        q, i, st = at_query[kname], at_ingest[kname], at_stacked[kname]
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "musicfpaugment_torch/csrc/peaks_prune.cu",
@@ -360,11 +404,15 @@ def main() -> None:
             "launches": launches[kname],
             "launches_ingest": launches_ingest[kname],
             "launches_match": launches_match[kname],
-            "max_abs_err": max(q["max_abs_err"], i["max_abs_err"]),
-            "ms": q["ms"], "plain_ms": q["plain_ms"], "bound_ms": q["bound_ms"],
-            "bound_by": q["bound_by"], "library_ms": None,
-            "ingest_ms": i["ms"], "ingest_plain_ms": i["plain_ms"],
-            "ingest_bound_ms": i["bound_ms"],
+            "max_abs_err": max(q["max_abs_err"], i["max_abs_err"], st["max_abs_err"]),
+            "ms": st["kernel_ms"], "plain_ms": st["plain_ms"],
+            "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+            "library_ms": None, "shape": "stacked",
+            "kernel_ms": st["kernel_ms"], "wrapper_ms": st["ms"],
+            "query_kernel_ms": q["kernel_ms"], "query_wrapper_ms": q["ms"],
+            "query_plain_ms": q["plain_ms"], "query_bound_ms": q["bound_ms"],
+            "ingest_kernel_ms": i["kernel_ms"], "ingest_wrapper_ms": i["ms"],
+            "ingest_plain_ms": i["plain_ms"], "ingest_bound_ms": i["bound_ms"],
         })
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi_line, flush=True)
@@ -374,4 +422,6 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:]:
+        fail(f"unknown arguments {sys.argv[1:]}")
     main()

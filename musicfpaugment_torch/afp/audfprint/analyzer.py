@@ -16,7 +16,7 @@ import torch
 
 from musicfpaugment_torch.afp.audfprint import landmarks as lm
 from musicfpaugment_torch.afp.audfprint.hash_table import HashTable
-from musicfpaugment_torch.afp.audfprint.peaks import find_peaks_batch
+from musicfpaugment_torch.afp.audfprint.peaks import find_peaks_batch, find_peaks_shifts
 from musicfpaugment_torch.device import DeviceLike, resolve_device
 
 Waveform = Union[np.ndarray, torch.Tensor]
@@ -117,19 +117,28 @@ class AudfprintPeaks:
     ) -> List[np.ndarray]:
         """(B, T) waveforms -> list of B (N_i, 2) unique sorted (time, hash)
         int32 arrays. Shift s drops ``int(s / shifts * n_hop)`` leading
-        samples; the cross-shift dedup is a host ``np.unique``."""
+        samples; all shifts are pruned as one stacked batch; the cross-shift
+        dedup is a host ``np.unique``."""
         waveforms = self._as_batch(waveforms)
         n_shifts = max(1, shifts if shifts is not None else self.shifts)
+        vsamp = None
+        if valid_samples is not None:
+            vsamp = torch.as_tensor(
+                np.asarray(valid_samples, np.int32), device=self.device
+            )
+        # every shift's peaks from one forward and one backward prune
+        masks_by_shift = find_peaks_shifts(
+            waveforms,
+            n_shifts,
+            density=self.density,
+            n_fft=self.n_fft,
+            n_hop=self.n_hop,
+            f_sd=self.f_sd,
+            maxpksperframe=self.maxpksperframe,
+            valid_samples=vsamp,
+        )
         per_shift = []  # per shift: B arrays of (N, 2)
-        for shift in range(n_shifts):
-            shiftsamps = int(shift / n_shifts * self.n_hop)
-            vf = None
-            if valid_samples is not None:
-                vf = valid_frames_for(
-                    np.asarray(valid_samples, np.int64), shiftsamps,
-                    self.n_fft, self.n_hop,
-                ).astype(np.int32)
-            masks = self.peaks_batch(waveforms[:, shiftsamps:], valid_frames=vf)
+        for masks in masks_by_shift:
             th, valid = self.hashes_from_masks(masks)
             th, valid = th.cpu().numpy(), valid.cpu().numpy()
             per_shift.append([t[v] for t, v in zip(th, valid)])

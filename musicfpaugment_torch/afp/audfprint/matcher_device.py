@@ -26,7 +26,7 @@ import torch
 
 from musicfpaugment_torch.afp.audfprint import landmarks as lm
 from musicfpaugment_torch.afp.audfprint.hash_table import HashTable
-from musicfpaugment_torch.afp.audfprint.peaks import find_peaks_batch
+from musicfpaugment_torch.afp.audfprint.peaks import find_peaks_shifts
 from musicfpaugment_torch.device import DeviceLike, resolve_device
 
 
@@ -302,7 +302,8 @@ class DeviceMatcher:
         max_query_hashes: int = 4096,
         valid_samples=None,
     ) -> List[Tuple[str, Any, int]]:
-        """Waveforms -> verdicts on the device: peaks for every shift,
+        """Waveforms -> verdicts on the device: peaks for every shift (the
+        shifts stacked into one batch, so each prune runs once per call),
         landmark hashes, cross-shift dedup and compaction, then the match.
         Only one scalar (the widest query's hash count, which picks the
         power-of-two lane tier) and the verdicts come back to the host.
@@ -325,19 +326,19 @@ class DeviceMatcher:
         if valid_samples is not None:
             vsamp = torch.as_tensor(valid_samples, dtype=torch.int32, device=self.device)
 
+        # every shift's peaks from one forward and one backward prune
+        masks_by_shift = find_peaks_shifts(
+            waveforms,
+            n_shifts,
+            density=density,
+            n_fft=n_fft,
+            n_hop=n_hop,
+            f_sd=f_sd,
+            maxpksperframe=maxpksperframe,
+            valid_samples=vsamp,
+        )
         th_parts, valid_parts = [], []
-        for s in range(n_shifts):
-            off = int(s / n_shifts * n_hop)
-            vf = None if vsamp is None else 1 + (vsamp - off) // n_hop
-            masks = find_peaks_batch(
-                waveforms[:, off:],
-                density=density,
-                n_fft=n_fft,
-                n_hop=n_hop,
-                f_sd=f_sd,
-                maxpksperframe=maxpksperframe,
-                valid_frames=vf,
-            )
+        for masks in masks_by_shift:
             C = int(masks.shape[-1])
             max_peaks = -(-maxpksperframe * C // 128) * 128
             th, v = lm.hashes_from_masks_batched(

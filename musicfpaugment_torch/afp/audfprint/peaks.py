@@ -4,14 +4,15 @@ musicfpaugment_tpu/afp/audfprint/peaks.py).
 The frontends are tensor code. The forward and backward decaying-threshold
 prunes exist twice: here as plain PyTorch column loops (the scan semantics of
 the JAX ``forward_prune`` / ``backward_prune``), and as the CUDA kernels in
-``peaks_cuda.py``. :func:`find_peaks_batch` picks by the tensor's device:
-CUDA tensors go through the kernels, CPU tensors through the plain loops.
+``peaks_cuda.py``. :func:`find_peaks_batch` and :func:`find_peaks_parts`
+pick by the tensor's device: CUDA tensors go through the kernels on a
+time-major spectrogram, CPU tensors through the plain loops.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -198,16 +199,140 @@ def prune_input(
     n_fft: int = 512,
     n_hop: int = 256,
     valid_frames: Optional[torch.Tensor] = None,
+    time_major: bool = False,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """(B, T) waveforms -> the (B, n_fft//2, frames) float32 log-HPF
     spectrogram both prunes take; with ``valid_frames``, padded columns are
     driven to -1e30 so the forward pass admits no candidates there (its
-    threshold is >= 0)."""
+    threshold is >= 0).
+
+    ``time_major`` gives the same values as (B, frames, n_fft//2), the
+    layout of the CUDA kernels: the transpose rides the one copy that drops
+    the Nyquist row and fills the padded columns. ``out`` (of the result's
+    shape, possibly a strided slice of a larger batch) receives that copy."""
     sgram = spectrogram_frontend(waveforms, n_fft, n_hop, valid_frames)
     logsg = log_hpf_frontend(sgram, valid_frames)
-    if valid_frames is not None:
-        logsg = torch.where(_col_mask(logsg.shape, valid_frames), logsg, -1e30)
-    return logsg.contiguous()
+    mask = None if valid_frames is None else _col_mask(logsg.shape, valid_frames)
+    if time_major:
+        logsg = logsg.transpose(1, 2)
+        mask = None if mask is None else mask.transpose(1, 2)
+    if out is None:
+        out = torch.empty(logsg.shape, dtype=logsg.dtype, device=logsg.device)
+    if mask is None:
+        out.copy_(logsg)
+    else:
+        torch.where(mask, logsg, logsg.new_tensor(-1e30), out=out)
+    return out
+
+
+def stacked_prune_input(
+    parts: Sequence[torch.Tensor],
+    n_fft: int = 512,
+    n_hop: int = 256,
+    valid_frames: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    time_major: bool = False,
+):
+    """:func:`prune_input` of several (B, T_s) waveform batches, stacked
+    along the batch axis into one (S*B, F, frames) tensor ((S*B, frames, F)
+    with ``time_major``) as wide as the longest part: each part's frontend
+    writes its slice, columns past a part's own count are -1e30, and each
+    row's valid frame count is its part's (``valid_frames[s]`` where given).
+    Returns (stack, (S*B,) int32 valid frames, [frames_s]). A single part
+    is not padded and keeps its ``valid_frames`` (possibly ``None``)."""
+    S, B = len(parts), parts[0].shape[0]
+    vfs = list(valid_frames) if valid_frames is not None else [None] * S
+    n_cols = [1 + int(p.shape[-1]) // n_hop for p in parts]
+    if S == 1:
+        return prune_input(parts[0], n_fft, n_hop, vfs[0], time_major), vfs[0], n_cols
+    dev = parts[0].device
+    wide, F = max(n_cols), n_fft // 2
+    shape = (S * B, wide, F) if time_major else (S * B, F, wide)
+    x = torch.empty(shape, dtype=torch.float32, device=dev)
+    cols = x if time_major else x.transpose(1, 2)  # (S*B, wide, F) either way
+    vf = torch.empty((S * B,), dtype=torch.int32, device=dev)
+    for s, part in enumerate(parts):
+        rows = slice(s * B, (s + 1) * B)
+        dst = cols[rows, : n_cols[s]]
+        prune_input(
+            part, n_fft, n_hop, vfs[s], time_major,
+            out=dst if time_major else dst.transpose(1, 2),
+        )
+        cols[rows, n_cols[s] :] = -1e30
+        vf[rows] = n_cols[s] if vfs[s] is None else vfs[s]
+    return x, vf, n_cols
+
+
+def find_peaks_parts(
+    parts: Sequence[torch.Tensor],
+    density: float = 20.0,
+    n_fft: int = 512,
+    n_hop: int = 256,
+    f_sd: float = 30.0,
+    maxpksperframe: int = 5,
+    valid_frames: Optional[Sequence[Optional[torch.Tensor]]] = None,
+) -> List[torch.Tensor]:
+    """Peak masks of several (B, T_s) waveform batches (the time shifts of
+    one batch) with one forward and one backward prune for all of them,
+    over :func:`stacked_prune_input`: the mechanism of a mixed-length batch.
+    Returns S (B, n_fft//2, frames_s) bool masks, equal to pruning each part
+    on its own.
+
+    On CUDA tensors the stack is time-major, both prunes are the kernels of
+    ``peaks_cuda.py`` (which raise if they cannot build or launch) and the
+    masks are views of the backward kernel's output. There the masking by
+    column of the CPU route is not needed: the forward kernel admits no
+    candidate in a -1e30 column (its envelope is >= 0), and the backward
+    kernel reads no column at or past ``valid_frames[b]`` and writes zeros
+    there. On CPU tensors the prunes are the plain loops above."""
+    B = parts[0].shape[0]
+    on_card = parts[0].is_cuda
+    x, vf, n_cols = stacked_prune_input(parts, n_fft, n_hop, valid_frames, on_card)
+    a_dec = prune_decay(density, n_hop)
+    if on_card:
+        from musicfpaugment_torch.afp.audfprint import peaks_cuda
+
+        peaks = peaks_cuda.forward_prune_tm(x, a_dec, f_sd, maxpksperframe)
+        kept = peaks_cuda.backward_prune_tm(x, peaks, a_dec, f_sd, maxpksperframe, vf)
+        masks = peaks_cuda.as_bool_masks(kept)
+    else:
+        peaks = forward_prune(x, a_dec, f_sd, maxpksperframe)
+        if vf is None:
+            masks = backward_prune(x, peaks, a_dec, f_sd, maxpksperframe)
+        else:
+            colmask = _col_mask(x.shape, vf)
+            kept = backward_prune(x, peaks & colmask, a_dec, f_sd, maxpksperframe, vf)
+            masks = kept & colmask
+    if len(parts) == 1:
+        return [masks]
+    return [masks[s * B : (s + 1) * B, :, :c] for s, c in enumerate(n_cols)]
+
+
+def find_peaks_shifts(
+    waveforms: torch.Tensor,
+    shifts: int,
+    density: float = 20.0,
+    n_fft: int = 512,
+    n_hop: int = 256,
+    f_sd: float = 30.0,
+    maxpksperframe: int = 5,
+    valid_samples: Optional[torch.Tensor] = None,
+) -> List[torch.Tensor]:
+    """Peak masks of ``shifts`` time-shifted copies of one (B, T) batch,
+    shift s dropping ``int(s / shifts * n_hop)`` leading samples, through
+    :func:`find_peaks_parts` (one launch of each prune for all shifts).
+    ``valid_samples`` (B,) marks real lengths of a batch stacked by
+    ``analyzer.pad_waveform_batch``; each shift's valid frame count is
+    ``1 + (valid_samples - offset) // n_hop``."""
+    n_shifts = max(1, shifts)
+    offsets = [int(s / n_shifts * n_hop) for s in range(n_shifts)]
+    vfs = None
+    if valid_samples is not None:
+        vfs = [1 + (valid_samples - off) // n_hop for off in offsets]
+    return find_peaks_parts(
+        [waveforms[:, off:] for off in offsets],
+        density, n_fft, n_hop, f_sd, maxpksperframe, vfs,
+    )
 
 
 def find_peaks_batch(
@@ -222,27 +347,60 @@ def find_peaks_batch(
     """(B, T) waveforms -> (B, n_fft//2, frames) bool peak masks.
 
     On a CUDA tensor both prunes run as the hand-written kernels of
-    ``peaks_cuda.py`` (which raise if they cannot build or launch); on a CPU
-    tensor they run as the plain loops above.
+    ``peaks_cuda.py`` (which raise if they cannot build or launch) on the
+    time-major spectrogram, and the result is a bool view of the backward
+    kernel's (B, frames, n_fft//2) output; on a CPU tensor they run as the
+    plain loops above.
 
     ``valid_frames`` (B,) int32 enables mixed-length batches padded by
     ``analyzer.pad_waveform_batch``: columns at or past a row's count hold
     no peaks, and the backward pass starts each row's envelope from its last
     valid column.
     """
-    logsg = prune_input(waveforms, n_fft, n_hop, valid_frames)
-    a_dec = prune_decay(density, n_hop)
-    if logsg.is_cuda:
-        from musicfpaugment_torch.afp.audfprint.peaks_cuda import (
-            backward_prune_cuda as bwd,
-            forward_prune_cuda as fwd,
-        )
-    else:
-        fwd, bwd = forward_prune, backward_prune
-    if valid_frames is not None:
-        colmask = _col_mask(logsg.shape, valid_frames)
-        peaks = fwd(logsg, a_dec, f_sd, maxpksperframe)
-        kept = bwd(logsg, peaks & colmask, a_dec, f_sd, maxpksperframe, valid_frames)
-        return kept & colmask
-    peaks = fwd(logsg, a_dec, f_sd, maxpksperframe)
-    return bwd(logsg, peaks, a_dec, f_sd, maxpksperframe)
+    return find_peaks_parts(
+        [waveforms], density, n_fft, n_hop, f_sd, maxpksperframe,
+        None if valid_frames is None else [valid_frames],
+    )[0]
+
+
+# ------------------------------------------------ the kernels' argmax, stated
+
+
+def float_order_key(x: np.ndarray) -> np.ndarray:
+    """float32 -> uint32 key whose unsigned order is the float order, as the
+    CUDA kernels form it: 0.0 is added first (so -0.0 and +0.0 share a key),
+    then a negative has all bits flipped and a non-negative its top bit set.
+    -inf gets the lowest key in use, 0x007fffff; the kernels keep 0 for "no
+    candidate". A positive float's key is its own bits with the top bit set,
+    so the forward kernel, whose candidates are all positive, compares the
+    bits themselves."""
+    u = (np.asarray(x, np.float32) + np.float32(0.0)).view(np.uint32)
+    top = np.uint32(0x80000000)
+    return np.where(u & top, ~u, u | top).astype(np.uint32)
+
+
+def float_from_key(key: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`float_order_key`: the float's own bits (+0.0 for
+    either zero)."""
+    key = np.asarray(key, np.uint32)
+    top = np.uint32(0x80000000)
+    return np.where(key & top, key ^ top, ~key).astype(np.uint32).view(np.float32)
+
+
+def argmax_by_key(vals: np.ndarray, lanes: int = 32):
+    """Row-wise argmax of (..., F) float32 the way a warp of the kernels
+    takes it: lane l holds bins [l*NB, (l+1)*NB), NB = F / lanes, and keeps
+    its best key with ties to its lower bin; one reduction takes the warp's
+    maximum key, a second the lowest bin among the lanes that hold it.
+    Returns (position, value): the first maximum, as ``torch.argmax`` and
+    ``lax.top_k`` give it."""
+    keys = float_order_key(vals)
+    lead, F = keys.shape[:-1], keys.shape[-1]
+    nb = F // lanes
+    per_lane = keys.reshape(*lead, lanes, nb)
+    best = per_lane.max(axis=-1)
+    # first maximum in the lane: its lower bin
+    mypos = np.arange(lanes) * nb + per_lane.argmax(axis=-1)
+    top = best.max(axis=-1)
+    pos = np.where(best == top[..., None], mypos, np.iinfo(np.int32).max).min(axis=-1)
+    return pos, float_from_key(top)
