@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Drives the audfprint identification path of ``musicfpaugment_torch`` end to
-end on the card, through the entry points a user calls:
+end on the card, clean and degraded queries, through the entry points a user
+calls:
 
 1. device  - the card's name and power limit;
 2. build   - compiles the CUDA kernels from ``musicfpaugment_torch/csrc``;
@@ -19,12 +20,29 @@ end on the card, through the entry points a user calls:
              clean 8 s crops of indexed tracks, which must reach accuracy
              0.99; 128 crops of tracks never indexed; one batch re-run with
              the plain prunes on the card, which must give the same verdicts;
-6. profile - one match batch and one ingest batch under torch.profiler:
-             wall time, device time, the card's busy share, the top ops.
+6. banks   - ``dcase_shaped_banks()`` at its defaults (3 h of noise in 15
+             scenes, 271 impulse responses), built on the host and put on
+             the card;
+7. augment - ``AugmentFP`` with ``freeze_parameters(42)`` and
+             ``batch_augment_indexed`` (batch 256) over the same 1,024 clean
+             crops under each of the paper's 10 conditions: examples/s; every
+             output finite with peak 1, a zero input staying zero; one batch
+             of 16 against the same draws on the CPU (at most 1e-5 apart);
+             the achieved SNR of the noise-only conditions' first batch
+             (within 0.2 dB of the drawn one);
+             the chain's variants, its stages and the two convolution routes
+             timed;
+8. conditions - ``compute_accuracy_batched`` on each condition's augmented
+             queries with the ``DeviceMatcher`` of phase 5: accuracy and
+             queries/s per condition;
+9. profile - one match batch, one ingest batch and one ``batch_augment`` call
+             under torch.profiler: wall time, device time, the card's busy
+             share, the top ops.
 
 Every phase prints a JSON line. Launch counters are zeroed just before
 ingest and read after match: both kernels must have launched in each (once
-per ingest batch, once per match batch whatever the number of shifts).
+per ingest batch, once per match batch whatever the number of shifts). They
+are zeroed again before the augmented conditions and read after them.
 The line before the last is the kernel table, the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
 
@@ -54,12 +72,19 @@ from musicfpaugment_torch.afp.audfprint.analyzer import (
     pad_waveform_batch,
     valid_frames_for,
 )
+from musicfpaugment_torch.augment import AugmentFP, dcase_shaped_banks
+from musicfpaugment_torch.augment import transforms as T
+from musicfpaugment_torch.core import filters
+from musicfpaugment_torch.core.convolve import fft_convolve
 from musicfpaugment_torch.data.synthetic import synth_tracks_device
 from musicfpaugment_torch.testing.audfprint_exps import (
     compute_accuracy_batched,
     create_fp_database,
 )
-from musicfpaugment_torch.testing.parameters import afp_settings
+from musicfpaugment_torch.testing.parameters import (
+    afp_settings,
+    test_pipelines_parameters,
+)
 
 SR = 8000
 N_TRACKS = 10_000
@@ -73,6 +98,14 @@ SHIFTS = 4
 CORPUS_SEED = 2023
 UNSEEN_SEED = 4049
 MIN_CLEAN_ACCURACY = 0.99  # the JAX package's 106k-track proof measured 1.0
+AUGMENT_BATCH = 256
+AUGMENT_SEED = 42
+BANK_HOURS = 3.0  # dcase_shaped_banks' default
+MIN_ACCURACY = {"bn_p10": 0.95, "recording_device": 0.95}
+# On outputs whose peak is 1: float32 rounding reads about 1e-6, a
+# convolution or transform at TF32 or lower precision about 1e-3.
+MAX_CARD_VS_CPU = 1e-5
+MAX_SNR_ERR_DB = 0.2
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32 outside the
 # tensor cores
@@ -191,6 +224,117 @@ def check_kernels(name, x, vf, sm_mhz):
         if mism:
             fail(f"{kname} at the {name} shape disagrees with its plain version "
                  f"in {mism} cells")
+    return out
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Mean ms per call on the host's clock, synchronised, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def augment_condition(fp, clean):
+    """``clean`` (N, T) through ``fp``'s frozen-seed chain in batches of
+    AUGMENT_BATCH, example i under index i. Returns (outputs, seconds)."""
+    fp.freeze_parameters(AUGMENT_SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = torch.cat([
+        fp.batch_augment_indexed(clean[s : s + AUGMENT_BATCH],
+                                 range(s, min(s + AUGMENT_BATCH, len(clean))))
+        for s in range(0, len(clean), AUGMENT_BATCH)
+    ])
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_augmented(name, fp, clean, out):
+    """Finite, every row's peak 1 within 1e-6, a zero input staying zero."""
+    if out.shape != clean.shape or not bool(torch.isfinite(out).all()):
+        fail(f"{name}: augmented queries of shape {tuple(out.shape)} or not finite")
+    peak_err = float((out.abs().amax(-1) - 1.0).abs().max())
+    if peak_err > 1e-6:
+        fail(f"{name}: a row's peak is {peak_err} away from 1")
+    pair = torch.stack([clean[0], torch.zeros_like(clean[0])])
+    if float(fp.batch_augment_indexed(pair, [0, len(clean)])[1].abs().max()) != 0.0:
+        fail(f"{name}: an all-zero input did not stay zero")
+    return peak_err
+
+
+def achieved_snr(fp, clean, out) -> dict:
+    """A noise-only condition on the card: ``out`` is a * clean + b * noise
+    with the noise crop that the same draws name, so least squares on the
+    pair gives the two gains and 20 log10(rms(a clean) / rms(b noise)) is
+    the SNR that the mix reached, beside the one drawn."""
+    n = clean.shape[0]
+    draws = fp.draw_indexed(range(n), clean.shape[-1], AUGMENT_SEED)[2]
+    noise = fp.noise_bank.crop(
+        draws["scene"], draws["row_u"], draws["offset"], clean.shape[-1]).double()
+    x, y = clean.double(), out.double()
+    xx, xn, nn = (x * x).sum(-1), (x * noise).sum(-1), (noise * noise).sum(-1)
+    yx, yn = (y * x).sum(-1), (y * noise).sum(-1)
+    det = xx * nn - xn * xn
+    a, b = (yx * nn - yn * xn) / det, (yn * xx - yx * xn) / det
+    reached = 10 * torch.log10(a * a * xx / (b * b * nn))
+    drawn = draws["snr_db"].to(reached)
+    return {"drawn_db": float(drawn[0]), "reached_db_min": float(reached.min()),
+            "reached_db_max": float(reached.max()),
+            "max_err_db": float((reached - drawn).abs().max())}
+
+
+def stage_times(fp, x) -> dict:
+    """Device ms of each stage of ``fp``'s chain on one batch, stage by
+    stage on the output of the stage before, and of the two fused pairs."""
+    draws = fp.draw(x.shape[0], x.shape[-1], torch.Generator().manual_seed(1))
+    tfms = fp.pipeline.transforms
+    banks = {"noise_bank": fp.noise_bank, "ir_bank": fp.ir_bank}
+    out, inputs = {}, [x]
+    for i, t in enumerate(tfms):
+        inputs.append(t.apply(inputs[i], draws[i], fp.sample_rate, **banks))
+        out[f"{i}_{type(t).__name__}"] = gpu_ms(
+            lambda: t.apply(inputs[i], draws[i], fp.sample_rate, **banks), 5)
+    out["fused_0_1_highpass_ir"] = gpu_ms(
+        lambda: T.fused_highpass_ir(x, draws[0], draws[1], tfms[0], fp.ir_bank), 5)
+    out["fused_5_6_lowpass_highpass"] = gpu_ms(
+        lambda: T.fused_lowpass_highpass(inputs[5], draws[5], draws[6], tfms[5], tfms[6]), 5)
+    out["draw_host_ms"] = wall_ms(lambda: fp.draw(x.shape[0], x.shape[-1]), 5)
+    out["draw_indexed_host_ms"] = wall_ms(
+        lambda: fp.draw_indexed(range(x.shape[0]), x.shape[-1], AUGMENT_SEED), 5)
+    return out
+
+
+def conv_routes(dev) -> dict:
+    """Direct grouped convolution against the FFT route at (256, 64000) with
+    33 and 513 taps: ms of each, their difference, and what TF32 would cost
+    the direct route (error against float64 with the flag off, as the port
+    runs it, and on)."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((AUGMENT_BATCH, QUERY_SECONDS * SR), generator=g).to(dev)
+    out = {}
+    for half in (16, 256):
+        taps = 2 * half + 1
+        kernels = filters.lowpass_kernels(torch.linspace(0.05, 0.45, AUGMENT_BATCH).to(dev), half)
+        padded = filters._edge_pad(x, half)
+        direct = filters._direct_conv_valid(padded, kernels)
+        by_fft = fft_convolve(padded, kernels, mode="valid")
+        exact = filters._direct_conv_valid(padded.double(), kernels.double())
+        with torch.backends.cudnn.flags(allow_tf32=True):
+            k = torch.flip(kernels, dims=[-1])[:, None, :]
+            tf32 = torch.nn.functional.conv1d(padded[None], k, groups=AUGMENT_BATCH)[0]
+        out[f"{taps}_taps"] = {
+            "direct_ms": gpu_ms(lambda: filters._direct_conv_valid(padded, kernels), 10),
+            "fft_ms": gpu_ms(lambda: fft_convolve(padded, kernels, mode="valid"), 10),
+            "direct_vs_fft_max_abs": float((direct - by_fft).abs().max()),
+            "direct_err_vs_float64": float((direct - exact).abs().max()),
+            "fft_err_vs_float64": float((by_fft - exact).abs().max()),
+            "direct_tf32_allowed_err_vs_float64": float((tf32 - exact).abs().max()),
+        }
     return out
 
 
@@ -378,7 +522,98 @@ def main() -> None:
     if plain_v != kernel_v:
         fail("plain prunes on the card gave other verdicts than the kernels")
 
-    # ---- 6. where the time goes: one match batch, one ingest batch
+
+    # ---- 6. banks: the paper-shaped synthetic noise and IR pools
+    t0 = time.perf_counter()
+    noise_bank, ir_bank = dcase_shaped_banks(hours=BANK_HOURS, device=dev)
+    torch.cuda.synchronize()
+    emit({
+        "phase": "banks", "seconds": time.perf_counter() - t0, "hours": BANK_HOURS,
+        "noise_rows": noise_bank.num_clips, "row_length": noise_bank.row_length,
+        "scenes": int(noise_bank.scene_starts.shape[0]), "irs": ir_bank.num_irs,
+        "ir_length": int(ir_bank.irs.shape[1]),
+        "noise_bytes": noise_bank.clips.numel() * 4, "ir_bytes": ir_bank.irs.numel() * 4,
+    })
+
+    # ---- 7. augment: the 1,024 clean crops under the 10 conditions
+    K.reset_launch_counts()
+    clean = torch.stack(queries)
+    augmented, augment_line = {}, {}
+    for cond, params in test_pipelines_parameters.items():
+        fp = AugmentFP(noise_bank, SR, parameters=params, impulse_response_dir=ir_bank, device=dev)
+        # two passes over the set: the first also grows the allocator's pool
+        # and makes the cuFFT plans; the rate is the second's
+        _, first_s = augment_condition(fp, clean)
+        augmented[cond], seconds = augment_condition(fp, clean)
+        augment_line[cond] = {
+            "first_pass_seconds": first_s, "seconds": seconds,
+            "examples_per_s": N_QUERIES / seconds,
+            "peak_err": check_augmented(cond, fp, clean, augmented[cond]),
+        }
+        if cond.startswith("bn_"):
+            snr = achieved_snr(fp, clean[:AUGMENT_BATCH], augmented[cond][:AUGMENT_BATCH])
+            augment_line[cond]["snr"] = snr
+            if not snr["max_err_db"] <= MAX_SNR_ERR_DB:
+                fail(f"{cond}: the mix is {snr['max_err_db']} dB away from the drawn SNR")
+    emit({"phase": "augment", "examples": N_QUERIES, "batch": AUGMENT_BATCH,
+          "seed": AUGMENT_SEED, "conditions": augment_line})
+
+    # the chain's variants on one batch under default_parameters, the card
+    # against the CPU on the same draws, the stages and the two conv routes
+    default = test_pipelines_parameters["default_parameters"]
+    x256 = clean[:AUGMENT_BATCH]
+    variants = {}
+    for label, kw in (("fast_fused", {}), ("fast_unfused", {"fuse_lti": False}),
+                      ("exact", {"fast_chain": False})):
+        fp = AugmentFP(noise_bank, SR, parameters=default, impulse_response_dir=ir_bank,
+                       device=dev, **kw)
+        draws = fp.draw_indexed(range(AUGMENT_BATCH), x256.shape[-1], AUGMENT_SEED)
+        variants[label] = {
+            "apply_ms": wall_ms(lambda: fp.apply(x256, draws), 5),
+            "draw_and_apply_ms": wall_ms(
+                lambda: fp.batch_augment_indexed(x256, range(AUGMENT_BATCH), AUGMENT_SEED), 5),
+        }
+        if label == "fast_unfused":
+            stages = stage_times(fp, x256)
+    on_card = AugmentFP(noise_bank, SR, parameters=default, impulse_response_dir=ir_bank, device=dev)
+    on_cpu = AugmentFP(noise_bank, SR, parameters=default, impulse_response_dir=ir_bank, device="cpu")
+    draws16 = on_card.draw_indexed(range(16), clean.shape[-1], AUGMENT_SEED)
+    card_vs_cpu = float(
+        (on_card.apply(clean[:16], draws16).cpu() - on_cpu.apply(clean[:16].cpu(), draws16)).abs().max())
+    emit({"phase": "augment_detail", "parameters": "default_parameters",
+          "batch": AUGMENT_BATCH, "variants": variants, "stages_ms": stages,
+          "card_vs_cpu_max_abs": card_vs_cpu, "card_vs_cpu_examples": 16,
+          "conv_routes": conv_routes(dev)})
+    if not card_vs_cpu <= MAX_CARD_VS_CPU:
+        fail(f"the chain on the card is {card_vs_cpu} away from the CPU on the same draws")
+    del on_cpu
+
+    # ---- 8. conditions: identify every condition's queries
+    q_names = [names[int(t)] for t in q_ids]
+    accuracy = {"cleans": {"accuracy": acc["No Denoising"], "queries_per_s": N_QUERIES / match_s}}
+    for cond, out in augmented.items():
+        t0 = time.perf_counter()
+        got = compute_accuracy_batched(
+            list(out), ht, analyzer, batch_size=QUERY_BATCH, shifts=SHIFTS,
+            device_matcher=dm, names=q_names, device=dev,
+        )
+        accuracy[cond] = {"accuracy": got["No Denoising"],
+                          "queries_per_s": N_QUERIES / (time.perf_counter() - t0)}
+    launches_conditions = dict(K.LAUNCHES)
+    emit({"phase": "conditions", "queries": N_QUERIES, "shifts": SHIFTS,
+          "conditions": accuracy, "launches": launches_conditions})
+    for cond, floor in MIN_ACCURACY.items():
+        if accuracy[cond]["accuracy"] < floor:
+            fail(f"{cond} accuracy {accuracy[cond]['accuracy']} < {floor}")
+    if accuracy["bn_m10"]["accuracy"] > accuracy["bn_p10"]["accuracy"]:
+        fail("more noise (bn_m10) identified better than less (bn_p10)")
+    for k, n in launches_conditions.items():
+        if n <= 0:
+            fail(f"{k} kernel did not launch while the conditions were identified")
+    del augmented
+
+    # ---- 9. where the time goes: one match batch, one ingest batch, one
+    # batch_augment call
     emit(profile_call("match_waveforms, 128 queries, 4 shifts",
                       lambda: dm.match_waveforms(q_batch, shifts=SHIFTS)))
     scratch = HashTable()
@@ -393,6 +628,8 @@ def main() -> None:
     t2 = time.perf_counter()
     emit({"phase": "profile", "call": "ingest_batch split, 64 tracks",
           "hashes_batch_ms": (t1 - t0) * 1e3, "host_store_ms": (t2 - t1) * 1e3})
+    emit(profile_call("batch_augment, 256 x 8 s, default_parameters",
+                      lambda: on_card.batch_augment(x256)))
 
     kernels = []
     for kname, line in (("forward_prune", 60), ("backward_prune", 113)):
@@ -401,9 +638,10 @@ def main() -> None:
             "name": kname, "route": "cuda",
             "source": "musicfpaugment_torch/csrc/peaks_prune.cu",
             "replaces": f"musicfpaugment_tpu/afp/audfprint/peaks_pallas.py:{line}",
-            "launches": launches[kname],
+            "launches": launches[kname] + launches_conditions[kname],
             "launches_ingest": launches_ingest[kname],
             "launches_match": launches_match[kname],
+            "launches_conditions": launches_conditions[kname],
             "max_abs_err": max(q["max_abs_err"], i["max_abs_err"], st["max_abs_err"]),
             "ms": st["kernel_ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],

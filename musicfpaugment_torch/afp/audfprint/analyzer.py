@@ -3,12 +3,13 @@ musicfpaugment_tpu/afp/audfprint/analyzer.py).
 
 :class:`AudfprintPeaks` turns batches of waveforms into peak masks and
 (time, hash) landmarks on its device, and ingests them into a host
-:class:`HashTable`. Inputs are arrays, tensors or ``.npy`` files; WAV/pkl
-decoding and the denoiser hooks are not ported yet.
+:class:`HashTable`. Inputs are arrays, tensors or ``.npy``, ``.pkl`` and
+``.wav`` files; the denoiser hooks are not ported yet.
 """
 
 from __future__ import annotations
 
+import pickle
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -17,6 +18,8 @@ import torch
 from musicfpaugment_torch.afp.audfprint import landmarks as lm
 from musicfpaugment_torch.afp.audfprint.hash_table import HashTable
 from musicfpaugment_torch.afp.audfprint.peaks import find_peaks_batch, find_peaks_shifts
+from musicfpaugment_torch.augment.constants import WAVEFORM_SAMPLING_RATE
+from musicfpaugment_torch.data.audio_io import read_wav, resample
 from musicfpaugment_torch.device import DeviceLike, resolve_device
 
 Waveform = Union[np.ndarray, torch.Tensor]
@@ -160,15 +163,29 @@ class AudfprintPeaks:
         return out
 
     def _load(self, source: Union[str, Waveform]) -> Waveform:
-        """One mono waveform from an array, a tensor (kept on its device) or
-        a ``.npy`` file."""
+        """One mono waveform at the analyzer's sample rate from an array or
+        a tensor (kept on its device, taken to be at that rate already), a
+        ``.npy`` file (likewise), a ``.pkl`` query (pickled at the query
+        generator's rate) or a ``.wav`` file (downmixed and resampled)."""
         if isinstance(source, torch.Tensor):
             return source.to(torch.float32).reshape(-1)
         if isinstance(source, np.ndarray):
             return source.astype(np.float32).reshape(-1)
-        if str(source).endswith(".npy"):
+        ext = str(source).rsplit(".", 1)[-1].lower()
+        if ext == "npy":
             return np.load(source).astype(np.float32).reshape(-1)
-        raise ValueError(f"cannot decode {source!r}: only arrays and .npy files")
+        if ext == "pkl":
+            with open(source, "rb") as f:
+                d = np.asarray(pickle.load(f), np.float32).reshape(-1)
+            return resample(d, WAVEFORM_SAMPLING_RATE, self.target_sr)
+        if ext == "wav":
+            data, sr = read_wav(source)
+            mono = data.mean(axis=0) if data.shape[0] > 1 else data[0]
+            return resample(mono, sr, self.target_sr)
+        raise ValueError(
+            f"cannot decode {source!r}: only arrays, tensors and .npy, .pkl "
+            "and .wav files"
+        )
 
     def ingest_batch(
         self,

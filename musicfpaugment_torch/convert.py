@@ -1,8 +1,11 @@
 """Carry state across from the JAX package.
 
-The audfprint slice has no model weights; what a JAX run leaves behind is
-its :class:`HashTable`. :func:`hash_table_from_arrays` adopts that table's
-numpy arrays (the fields of its npz file) without importing the JAX package.
+The ported slices have no model weights; what a JAX run leaves behind is its
+:class:`HashTable` and its augmentation banks. :func:`hash_table_from_arrays`
+adopts that table's numpy arrays (the fields of its npz file), and
+:func:`noise_bank_from_arrays` / :func:`ir_bank_from_arrays` the fields of a
+JAX ``NoiseBank`` / ``IRBank`` as numpy arrays, all without importing the
+JAX package.
 """
 
 from __future__ import annotations
@@ -10,8 +13,11 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from musicfpaugment_torch.afp.audfprint.hash_table import HashTable
+from musicfpaugment_torch.augment.banks import IRBank, NoiseBank
+from musicfpaugment_torch.device import DeviceLike, resolve_device
 
 
 def hash_table_from_arrays(
@@ -38,3 +44,40 @@ def hash_table_from_arrays(
         meta,
     )
     return ht
+
+
+def _tensor(array, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(array, dtype)).to(device)
+
+
+def noise_bank_from_arrays(
+    clips: np.ndarray,
+    scene_starts: np.ndarray,
+    scene_counts: np.ndarray,
+    sample_rate: int,
+    device: DeviceLike = None,
+) -> NoiseBank:
+    """A port :class:`NoiseBank` on ``device`` (``None`` = CUDA) holding
+    copies of a JAX-side bank's fields."""
+    device = resolve_device(device)
+    clips = _tensor(clips, np.float32, device)
+    starts = _tensor(scene_starts, np.int32, device)
+    counts = _tensor(scene_counts, np.int32, device)
+    if clips.ndim != 2 or starts.shape != counts.shape or starts.ndim != 1:
+        raise ValueError("clips must be (N, L) and scene_starts, scene_counts (S,)")
+    if int(counts.sum()) != clips.shape[0]:
+        raise ValueError(f"scene_counts sum to {int(counts.sum())}, not {clips.shape[0]} rows")
+    return NoiseBank(clips, starts, counts, int(sample_rate))
+
+
+def ir_bank_from_arrays(
+    irs: np.ndarray, lengths: np.ndarray, sample_rate: int, device: DeviceLike = None
+) -> IRBank:
+    """A port :class:`IRBank` on ``device`` (``None`` = CUDA) holding copies
+    of a JAX-side bank's fields."""
+    device = resolve_device(device)
+    irs = _tensor(irs, np.float32, device)
+    lengths = _tensor(lengths, np.int32, device)
+    if irs.ndim != 2 or lengths.shape != (irs.shape[0],):
+        raise ValueError("irs must be (N, L) and lengths (N,)")
+    return IRBank(irs, lengths, int(sample_rate))

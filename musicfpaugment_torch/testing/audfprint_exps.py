@@ -1,13 +1,15 @@
-"""Audfprint evaluation harness (port of the indexing and batched accuracy
-parts of musicfpaugment_tpu/testing/audfprint_exps.py).
+"""Audfprint evaluation harness (port of the indexing, batched accuracy
+and identification-rate parts of musicfpaugment_tpu/testing/audfprint_exps.py).
 
-Inputs are arrays, tensors (kept on their device) or ``.npy`` paths; a
-``names`` list gives the names to index under and the ground truth to score
-against when the inputs are not paths.
+Inputs are arrays, tensors (kept on their device) or ``.npy``, ``.pkl`` and
+``.wav`` paths; a ``names`` list gives the names to index under and the
+ground truth to score against when the inputs are not paths.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -20,7 +22,15 @@ from musicfpaugment_torch.afp.audfprint.analyzer import (
 from musicfpaugment_torch.afp.audfprint.hash_table import HashTable
 from musicfpaugment_torch.afp.audfprint.matcher_device import DeviceMatcher
 from musicfpaugment_torch.device import DeviceLike, resolve_device
-from musicfpaugment_torch.testing.parameters import afp_settings
+from musicfpaugment_torch.testing.parameters import (
+    afp_db_paths,
+    afp_settings,
+    queries_paths,
+)
+
+RESULTS_DIR = os.environ.get(
+    "MFPA_RESULTS_DIR", os.path.join(os.path.dirname(__file__), "results")
+)
 
 
 def _analyzer_for(analyzer: Optional[AudfprintPeaks], device: DeviceLike) -> AudfprintPeaks:
@@ -165,3 +175,50 @@ def compute_accuracy_batched(
         out["With Denoising"] = correct[1] / max(n, 1)
         out["Mix Pipeline"] = acc_mix / max(n, 1)
     return out
+
+
+def identification_rate_results(
+    denoising_model: Optional[str] = None,
+    spec_denoiser=None,
+    wave_denoiser=None,
+    query_paths: Optional[Dict[str, str]] = None,
+    dbpath=None,
+    batch_size: int = 128,
+    device: DeviceLike = None,
+) -> Dict[str, Dict[str, float]]:
+    """Identification rate over the condition directories (``query_paths``,
+    default the 11 of ``testing/parameters.py``): every query file of a
+    directory through ``compute_accuracy_batched`` with 4 shifts, with one
+    :class:`DeviceMatcher` whose device-resident table is reused across the
+    conditions. The results are also written to
+    ``RESULTS_DIR/accuracy_audfprint_none.json``.
+
+    The port has no denoiser yet, so each condition reports "No Denoising"
+    only, and asking for one (``denoising_model``, ``spec_denoiser`` or
+    ``wave_denoiser``) raises ``NotImplementedError``."""
+    if denoising_model is not None or spec_denoiser is not None or wave_denoiser is not None:
+        raise NotImplementedError(
+            "the denoisers are not ported yet: identification_rate_results "
+            "reports the 'No Denoising' arm only"
+        )
+    device = resolve_device(device)
+    results = {}
+    query_paths = query_paths or queries_paths
+    dbpath = dbpath if dbpath is not None else afp_db_paths["audfprint"]
+    hash_tab = dbpath if isinstance(dbpath, HashTable) else HashTable(dbpath)
+    device_matcher = DeviceMatcher(hash_tab, device=device)
+    analyzer = AudfprintPeaks(afp_settings["audfprint"], device=device)
+    for augmentation, query_path in query_paths.items():
+        print("augmentation:", augmentation)
+        queries = [
+            os.path.join(query_path, query) for query in sorted(os.listdir(query_path))
+        ]
+        results[str(augmentation)] = compute_accuracy_batched(
+            queries, hash_tab, analyzer, batch_size=batch_size, shifts=4,
+            device_matcher=device_matcher, device=device,
+        )
+        print(results[str(augmentation)])
+    os.makedirs(RESULTS_DIR, exist_ok=True)
+    with open(os.path.join(RESULTS_DIR, "accuracy_audfprint_none.json"), "w") as json_file:
+        json.dump(results, json_file, indent=4)
+    return results

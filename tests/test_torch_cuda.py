@@ -197,3 +197,40 @@ def test_match_waveforms_card_equals_cpu(cuda_device):
         verdicts.append(DeviceMatcher(ht, device=dev).match_waveforms(crops, shifts=2))
     assert [v[:2] for v in verdicts[0]] == [v[:2] for v in verdicts[1]]
     assert [v[1] for v in verdicts[0]] == [names[i % 6] for i in range(8)]
+
+
+# ------------------------------------------------------------ augmentation
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [{}, {"fuse_lti": False}, {"fast_chain": False}])
+@pytest.mark.parametrize("condition", ["default_parameters", "bn_0", "reverb", "recording_device"])
+def test_augment_chain_on_card_matches_cpu(cuda_device, condition, mode):
+    """The same draws through the chain on the card and on the CPU: cuFFT
+    and cuDNN against the CPU's libraries, TF32 off, on outputs whose peak
+    is 1 (1e-5: float32 rounding reads about 1e-6, a clipping threshold
+    moves with the rounding before it, and TF32 would read about 1e-3)."""
+    from musicfpaugment_torch import augment
+    from musicfpaugment_torch.testing.parameters import test_pipelines_parameters
+
+    banks = augment.synthetic_banks(num_noise=8, num_irs=4, seed=1, device="cpu")
+    params = test_pipelines_parameters[condition]
+    on_cpu = augment.AugmentFP(
+        banks[0], 8000, parameters=params, impulse_response_dir=banks[1], device="cpu", **mode)
+    on_card = augment.AugmentFP(
+        banks[0], 8000, parameters=params, impulse_response_dir=banks[1],
+        device=cuda_device, **mode)
+    x = next(synthetic_clean_batches(16, 8 * 8000, seed=5))[:, None, :]
+    x[3] = 0.0
+    on_cpu.freeze_parameters(42)
+    draws = on_cpu.draw_indexed(range(16), 8 * 8000, 42)
+    want = on_cpu.apply(x, draws)
+    got = on_card.apply(x, draws)
+    assert got.device.type == "cuda" and got.shape == want.shape
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+    on_card.freeze_parameters(42)
+    assert torch.equal(on_card.batch_augment_indexed(x, range(16)), got)
+    # the card's own arithmetic does not depend on the batch size
+    halves = torch.cat([on_card.apply(x[:8], [{k: v[:8] for k, v in d.items()} for d in draws]),
+                        on_card.apply(x[8:], [{k: v[8:] for k, v in d.items()} for d in draws])])
+    assert float((halves - got).abs().max()) <= 1e-6
