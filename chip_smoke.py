@@ -35,14 +35,36 @@ calls:
 8. conditions - ``compute_accuracy_batched`` on each condition's augmented
              queries with the ``DeviceMatcher`` of phase 5: accuracy and
              queries/s per condition;
-9. profile - one match batch, one ingest batch and one ``batch_augment`` call
-             under torch.profiler: wall time, device time, the card's busy
-             share, the top ops.
+9. profile - one match batch, one ingest batch, one ``batch_augment`` call
+             and one denoised match batch under torch.profiler: wall time,
+             device time, the card's busy share, the top ops;
+10. unet   - ``UNet(1, 1)`` at ``base=64`` with weights from a numpy seed:
+             its parameter and operation counts, and a forward of 128
+             spectrograms of degraded queries in strict float32 (the port's
+             default), with TF32 allowed and with bfloat16 compute: ms,
+             TFLOP/s, peak memory, and how far the two faster ones move the
+             output; the card against the CPU on 2 spectrograms in strict
+             float32 (at most 1e-3 of the largest output);
+11. denoised - a ``base=64`` UNet whose weights make it the identity on
+             non-negative input as the second analyzer's spectrogram
+             denoiser: ``compute_accuracy_batched`` with both analyzers over
+             the first 256 clean and the first 256 ``default_parameters``
+             queries (batch 128, 4 shifts), which must return the three
+             accuracies, "With Denoising" within 2/256 of "No Denoising" and
+             "Mix Pipeline" no lower than either less 2/256; one batch's
+             peak masks with and without the hook (equal in >= 0.999 of
+             cells); queries/s of the call and of the denoised arm alone;
+12. peaks_metrics - ``compute_peaks_metrics_batched`` over the same 256
+             ``default_parameters`` queries against their clean crops, read
+             from ``.npy`` files in a temporary directory: eight finite
+             numbers, ``f1_den`` within 1e-3 of ``f1_score_no_den``,
+             ``psnr_den_spec`` within 0.01 dB of ``psnr_no_den_spec``.
 
 Every phase prints a JSON line. Launch counters are zeroed just before
 ingest and read after match: both kernels must have launched in each (once
 per ingest batch, once per match batch whatever the number of shifts). They
-are zeroed again before the augmented conditions and read after them.
+are zeroed again before the augmented conditions, before the denoised
+accuracies and before the peak metrics, and read after each.
 The line before the last is the kernel table, the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
 
@@ -55,9 +77,13 @@ readings at the other two shapes.
 
 from __future__ import annotations
 
+import copy
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -74,11 +100,16 @@ from musicfpaugment_torch.afp.audfprint.analyzer import (
 )
 from musicfpaugment_torch.augment import AugmentFP, dcase_shaped_banks
 from musicfpaugment_torch.augment import transforms as T
+from musicfpaugment_torch.convert import unet_denoiser
 from musicfpaugment_torch.core import filters
 from musicfpaugment_torch.core.convolve import fft_convolve
 from musicfpaugment_torch.data.synthetic import synth_tracks_device
+from musicfpaugment_torch.models import UNet
+from musicfpaugment_torch.models.unet import cudnn_tf32
 from musicfpaugment_torch.testing.audfprint_exps import (
+    PEAKS_METRICS,
     compute_accuracy_batched,
+    compute_peaks_metrics_batched,
     create_fp_database,
 )
 from musicfpaugment_torch.testing.parameters import (
@@ -106,6 +137,16 @@ MIN_ACCURACY = {"bn_p10": 0.95, "recording_device": 0.95}
 # convolution or transform at TF32 or lower precision about 1e-3.
 MAX_CARD_VS_CPU = 1e-5
 MAX_SNR_ERR_DB = 0.2
+UNET_SEED = 64
+UNET_BATCH = 128
+DENOISED_QUERIES = 256
+# relative to the largest output: float32 rounding through 23 layers reads
+# about 1e-5, TF32 about 1e-3
+MAX_UNET_CARD_VS_CPU = 1e-3
+MIN_MASK_AGREEMENT = 0.999
+ACCURACY_SLACK = 2 / DENOISED_QUERIES
+MAX_F1_GAP = 1e-3
+MAX_PSNR_GAP_DB = 0.01
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32 outside the
 # tensor cores
@@ -338,6 +379,129 @@ def conv_routes(dev) -> dict:
     return out
 
 
+def seeded_unet(seed: int) -> UNet:
+    """``UNet(1, 1)`` at ``base=64`` on the CPU with weights from a numpy
+    generator: kernels scaled by their fan-in so that activations stay of
+    order 1, BatchNorm scales, biases and running statistics not trivial."""
+    model = UNet(1, 1)
+    rng = np.random.default_rng(seed)
+
+    def draw(like, kind, scale=1.0):
+        if kind == "normal":
+            a = rng.standard_normal(like.shape, dtype=np.float32) * scale
+        else:
+            a = rng.uniform(scale[0], scale[1], like.shape).astype(np.float32)
+        return torch.from_numpy(a)
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+                m.weight.copy_(draw(m.weight, "normal", math.sqrt(2.0 / fan_in)))
+            elif isinstance(m, torch.nn.ConvTranspose2d):  # one tap per output pixel
+                m.weight.copy_(draw(m.weight, "normal", math.sqrt(1.0 / m.in_channels)))
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.copy_(draw(m.weight, "uniform", (0.8, 1.2)))
+                m.running_mean.copy_(draw(m.running_mean, "normal", 0.1))
+                m.running_var.copy_(draw(m.running_var, "uniform", (0.5, 1.5)))
+            if getattr(m, "bias", None) is not None:
+                m.bias.copy_(draw(m.bias, "normal", 0.1))
+    return model.eval()
+
+
+def make_identity_unet(model: UNet) -> UNet:
+    """Give a ``UNet(1, 1)`` the weights that make it the identity on
+    non-negative input: centre taps along the skip path inc -> up4 -> outc,
+    unit BatchNorm, zeros everywhere else (the deeper levels still run).
+    Returns the model in eval mode."""
+    with torch.no_grad():
+        for p in model.parameters():
+            p.zero_()
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.fill_(1.0)
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0 - m.eps)
+        # up4's first input channels are the skip's: concat is [skip, upsampled]
+        for conv in (model.inc.conv1, model.inc.conv2, model.up4.conv.conv1, model.up4.conv.conv2):
+            conv.weight[0, 0, 1, 1] = 1.0
+        model.outc.weight[0, 0, 0, 0] = 1.0
+    return model.eval()
+
+
+def unet_forward_flops(model: UNet, x: torch.Tensor) -> int:
+    """Multiply-adds x 2 of one forward of ``x``, summed over the
+    convolutions from the shapes they saw (the element-wise layers are not
+    counted)."""
+    total = 0
+
+    def count(mod, args, out):
+        nonlocal total
+        taps = mod.kernel_size[0] * mod.kernel_size[1]
+        if isinstance(mod, torch.nn.ConvTranspose2d):
+            total += 2 * args[0].numel() * mod.out_channels * taps
+        else:
+            total += 2 * out.numel() * mod.in_channels * taps
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+    with torch.inference_mode():
+        model(x)
+    for h in hooks:
+        h.remove()
+    return total
+
+
+def unet_phase(dev, sgrams: torch.Tensor) -> dict:
+    """Phase 10 on ``sgrams`` (UNET_BATCH, 257, 251), normalised magnitudes
+    of degraded queries."""
+    on_cpu = seeded_unet(UNET_SEED)
+    strict = copy.deepcopy(on_cpu).to(dev)
+    bf16 = UNet(1, 1, dtype=torch.bfloat16).to(dev).eval()
+    bf16.load_state_dict(strict.state_dict())
+    strict_hook, bf16_hook = unet_denoiser(strict), unet_denoiser(bf16)
+
+    def tf32_hook(x):  # the same layers, TF32 allowed around them
+        with torch.inference_mode(), cudnn_tf32(True):
+            return strict.outc(strict.body(x[:, None]))[:, 0]
+
+    flops_one = unet_forward_flops(strict, sgrams[:1])
+    baseline = torch.cuda.memory_allocated()
+    runs = {}
+    for label, hook in (("float32", strict_hook), ("tf32_allowed", tf32_hook),
+                        ("bfloat16", bf16_hook)):
+        torch.cuda.reset_peak_memory_stats()
+        ms = gpu_ms(lambda: hook(sgrams), 2)
+        runs[label] = {
+            "ms": ms, "tflop_per_s": flops_one * sgrams.shape[0] / ms / 1e9,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "peak_bytes_above_start": torch.cuda.max_memory_allocated() - baseline,
+        }
+    few = sgrams[:8]
+    want = strict_hook(few)
+    top = float(want.abs().max())
+    for label, hook in (("tf32_allowed", tf32_hook), ("bfloat16", bf16_hook)):
+        runs[label]["max_err_vs_float32_rel"] = float((hook(few) - want).abs().max()) / top
+    t0 = time.perf_counter()
+    cpu_out = unet_denoiser(on_cpu)(sgrams[:2].cpu())
+    cpu_s = time.perf_counter() - t0
+    card_vs_cpu = float((want[:2].cpu() - cpu_out).abs().max()) / float(cpu_out.abs().max())
+    line = {
+        "phase": "unet", "base": strict.base, "seed": UNET_SEED,
+        "parameters": sum(p.numel() for p in strict.parameters()),
+        "input": list(sgrams.shape), "flops_one_forward": flops_one,
+        "output_max_abs": top, "output_finite": bool(torch.isfinite(want).all()),
+        "forward": runs, "card_vs_cpu_rel": card_vs_cpu, "card_vs_cpu_examples": 2,
+        "cpu_forward_s": cpu_s,
+    }
+    emit(line)
+    if not line["output_finite"] or want.shape != few.shape:
+        fail(f"the UNet's output is not finite or of shape {tuple(want.shape)}")
+    if not card_vs_cpu <= MAX_UNET_CARD_VS_CPU:
+        fail(f"the UNet on the card is {card_vs_cpu} of its largest output away from the CPU")
+    return line
+
+
 def plain_tm(mask: torch.Tensor) -> torch.Tensor:
     """(B, F, C) bool mask of a plain prune -> the (B, C, F) 0/1 bytes the
     kernels' route carries."""
@@ -381,12 +545,20 @@ def profile_call(label: str, fn) -> dict:
     prune_ms = sum(
         _device_us(e) for e in on_card if "fwd_kernel" in e.key or "bwd_kernel" in e.key
     ) / 1e3
+    # the kernels of a cuDNN convolution, whatever their names, are counted
+    # on the host op that launched them
+    conv_ms = sum(
+        _device_us(e) for e in host_ops
+        if e.key in ("aten::cudnn_convolution", "aten::cudnn_convolution_transpose")
+    ) / 1e3
     return {
         "phase": "profile", "call": label, "wall_ms": wall_ms,
         "traced_wall_ms": traced_ms, "device_ms": device_ms,
         "busy_share": device_ms / traced_ms,
         "prune_kernels_device_ms": prune_ms,
         "prune_kernels_share_of_device": prune_ms / device_ms,
+        "cudnn_convolutions_device_ms": conv_ms,
+        "cudnn_convolutions_share_of_device": conv_ms / device_ms,
         "top_ops": top(host_ops), "top_kernels": top(on_card),
     }
 
@@ -610,6 +782,7 @@ def main() -> None:
     for k, n in launches_conditions.items():
         if n <= 0:
             fail(f"{k} kernel did not launch while the conditions were identified")
+    aug_default = augmented["default_parameters"][:DENOISED_QUERIES].clone()
     del augmented
 
     # ---- 9. where the time goes: one match batch, one ingest batch, one
@@ -631,6 +804,94 @@ def main() -> None:
     emit(profile_call("batch_augment, 256 x 8 s, default_parameters",
                       lambda: on_card.batch_augment(x256)))
 
+    # ---- 10. the UNet at full width, three precisions, card against CPU
+    unet_phase(dev, P.spectrogram_frontend(aug_default[:UNET_BATCH]))
+
+    # ---- 11. denoised: both analyzers through compute_accuracy_batched
+    hook = unet_denoiser(make_identity_unet(UNet(1, 1)).to(dev))
+    analyzer_den = AudfprintPeaks(
+        afp_settings["audfprint"], denoising=True, denoising_model="unet",
+        spec_denoiser=hook, device=dev,
+    )
+    aug_batch = aug_default[:QUERY_BATCH]
+    # one batch's masks with and without the hook (also warms cuDNN up)
+    masks_plain = P.find_peaks_batch(aug_batch)
+    masks_den = P.find_peaks_batch(aug_batch, denoiser=hook)
+    agreement = float((masks_plain == masks_den).float().mean())
+    dm.match_waveforms(aug_batch, shifts=SHIFTS, denoiser=hook)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    den_names = q_names[:DENOISED_QUERIES]
+    denoised = {}
+    for label, qs in (("cleans", queries[:DENOISED_QUERIES]),
+                      ("default_parameters", list(aug_default))):
+        t0 = time.perf_counter()
+        got = compute_accuracy_batched(
+            qs, ht, analyzer, analyzer_den, batch_size=QUERY_BATCH, shifts=SHIFTS,
+            device_matcher=dm, names=den_names, device=dev,
+        )
+        denoised[label] = {"accuracy": got,
+                           "queries_per_s": DENOISED_QUERIES / (time.perf_counter() - t0)}
+    launches_denoised = dict(K.LAUNCHES)
+    t0 = time.perf_counter()
+    arm = compute_accuracy_batched(
+        list(aug_default), ht, analyzer_den, batch_size=QUERY_BATCH, shifts=SHIFTS,
+        device_matcher=dm, names=den_names, device=dev,
+    )
+    arm_qps = DENOISED_QUERIES / (time.perf_counter() - t0)
+    emit({"phase": "denoised", "queries": DENOISED_QUERIES, "shifts": SHIFTS,
+          "unet": "base=64, identity weights", "sets": denoised,
+          "denoised_arm_alone_queries_per_s": arm_qps,
+          "denoised_arm_alone_accuracy": arm["No Denoising"],
+          "undenoised_queries_per_s": N_QUERIES / match_s,
+          "mask_agreement": agreement, "mask_peaks": int(masks_plain.sum()),
+          "launches": launches_denoised})
+    for label, row in denoised.items():
+        a = row["accuracy"]
+        if set(a) != {"No Denoising", "With Denoising", "Mix Pipeline"}:
+            fail(f"{label}: compute_accuracy_batched returned {sorted(a)}")
+        if abs(a["With Denoising"] - a["No Denoising"]) > ACCURACY_SLACK:
+            fail(f"{label}: the identity denoiser moved the accuracy: {a}")
+        if a["Mix Pipeline"] < max(a["No Denoising"], a["With Denoising"]) - ACCURACY_SLACK:
+            fail(f"{label}: the mix pipeline is below its arms: {a}")
+    if agreement < MIN_MASK_AGREEMENT:
+        fail(f"masks with and without the identity denoiser agree in {agreement} of cells")
+    for k, n in launches_denoised.items():
+        if n <= 0:
+            fail(f"{k} kernel did not launch in the denoised accuracies")
+
+    # ---- 12. peak metrics of the same degraded queries against their cleans
+    with tempfile.TemporaryDirectory() as tmp:
+        os.mkdir(os.path.join(tmp, "cleans"))
+        os.mkdir(os.path.join(tmp, "default_parameters"))
+        q_paths = []
+        for i in range(DENOISED_QUERIES):
+            np.save(os.path.join(tmp, "cleans", f"q{i:04d}.npy"), queries[i].cpu().numpy())
+            q_paths.append(os.path.join(tmp, "default_parameters", f"q{i:04d}.npy"))
+            np.save(q_paths[-1], aug_default[i].cpu().numpy())
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = compute_peaks_metrics_batched(
+            q_paths, analyzer, analyzer_den, cleans_path=os.path.join(tmp, "cleans"))
+        metrics_s = time.perf_counter() - t0
+    launches_metrics = dict(K.LAUNCHES)
+    emit({"phase": "peaks_metrics", "queries": DENOISED_QUERIES, "metrics": metrics,
+          "seconds": metrics_s, "queries_per_s": DENOISED_QUERIES / metrics_s,
+          "launches": launches_metrics})
+    if set(metrics) != set(PEAKS_METRICS) or not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"peak metrics missing or not finite: {metrics}")
+    if abs(metrics["f1_den"] - metrics["f1_score_no_den"]) > MAX_F1_GAP:
+        fail(f"the identity denoiser moved the peak F1: {metrics}")
+    if abs(metrics["psnr_den_spec"] - metrics["psnr_no_den_spec"]) > MAX_PSNR_GAP_DB:
+        fail(f"the identity denoiser moved the spectrogram PSNR: {metrics}")
+    for k, n in launches_metrics.items():
+        if n <= 0:
+            fail(f"{k} kernel did not launch in the peak metrics")
+
+    # ---- 9 again: where the time of a denoised match batch goes
+    emit(profile_call("match_waveforms with the UNet, 128 queries, 4 shifts",
+                      lambda: dm.match_waveforms(aug_batch, shifts=SHIFTS, denoiser=hook)))
+
     kernels = []
     for kname, line in (("forward_prune", 60), ("backward_prune", 113)):
         q, i, st = at_query[kname], at_ingest[kname], at_stacked[kname]
@@ -638,10 +899,13 @@ def main() -> None:
             "name": kname, "route": "cuda",
             "source": "musicfpaugment_torch/csrc/peaks_prune.cu",
             "replaces": f"musicfpaugment_tpu/afp/audfprint/peaks_pallas.py:{line}",
-            "launches": launches[kname] + launches_conditions[kname],
+            "launches": launches[kname] + launches_conditions[kname]
+            + launches_denoised[kname] + launches_metrics[kname],
             "launches_ingest": launches_ingest[kname],
             "launches_match": launches_match[kname],
             "launches_conditions": launches_conditions[kname],
+            "launches_denoised": launches_denoised[kname],
+            "launches_peaks_metrics": launches_metrics[kname],
             "max_abs_err": max(q["max_abs_err"], i["max_abs_err"], st["max_abs_err"]),
             "ms": st["kernel_ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],

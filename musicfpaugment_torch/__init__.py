@@ -6,6 +6,13 @@ path of its JAX counterpart and is held against it in tests/test_torch_*.py.
 The TPU's Pallas kernels become hand-written CUDA C++ kernels under
 ``csrc/`` (built with nvcc at first use, see ``_build.py``); their plain
 PyTorch versions serve CPU tensors only.
+
+Ported so far: audfprint identification (``afp.audfprint``), the augmenter
+and the query generator (``augment``, ``testing.generate_queries``), the
+UNet spectrogram denoiser with its Flax-weights converter (``models``,
+``convert``), and the audfprint evaluation harness with the peak metrics
+(``testing.audfprint_exps``, ``testing.metrics``). ``ROADMAP.md`` lists what
+is left.
 """
 
 from musicfpaugment_torch.device import resolve_device

@@ -1,22 +1,26 @@
-"""Audfprint analyzer, batched path (port of
-musicfpaugment_tpu/afp/audfprint/analyzer.py).
+"""Audfprint analyzer (port of musicfpaugment_tpu/afp/audfprint/analyzer.py).
 
 :class:`AudfprintPeaks` turns batches of waveforms into peak masks and
 (time, hash) landmarks on its device, and ingests them into a host
-:class:`HashTable`. Inputs are arrays, tensors or ``.npy``, ``.pkl`` and
-``.wav`` files; the denoiser hooks are not ported yet.
+:class:`HashTable`; ``find_peaks`` / ``wavfile2peaks`` / ``wavfile2hashes`` /
+``ingest`` keep the one-file signatures. Inputs are arrays, tensors or
+``.npy``, ``.pkl`` and ``.wav`` files. Denoisers are injected as callables
+on tensors: ``spec_denoiser`` (B, F, C) -> (B, F, C) on the normalised
+magnitude (``convert.unet_denoiser``), ``wave_denoiser`` (B, T) -> (B, T)
+on the waveforms before the peaks.
 """
 
 from __future__ import annotations
 
 import pickle
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from musicfpaugment_torch.afp.audfprint import landmarks as lm
 from musicfpaugment_torch.afp.audfprint.hash_table import HashTable
+from musicfpaugment_torch.afp.audfprint.matcher import locmax
 from musicfpaugment_torch.afp.audfprint.peaks import find_peaks_batch, find_peaks_shifts
 from musicfpaugment_torch.augment.constants import WAVEFORM_SAMPLING_RATE
 from musicfpaugment_torch.data.audio_io import read_wav, resample
@@ -70,7 +74,15 @@ class AudfprintPeaks:
     """Analysis of waveforms into hash constellations on ``device``
     (``None`` = CUDA; raises without it unless ``device="cpu"``)."""
 
-    def __init__(self, params: Dict[str, Any], device: DeviceLike = None) -> None:
+    def __init__(
+        self,
+        params: Dict[str, Any],
+        denoising: bool = False,
+        denoising_model: Optional[str] = None,
+        spec_denoiser: Optional[Callable] = None,
+        wave_denoiser: Optional[Callable] = None,
+        device: DeviceLike = None,
+    ) -> None:
         self.device = resolve_device(device)
         self.density = params["density"]
         self.target_sr = params["samplerate"]
@@ -79,9 +91,38 @@ class AudfprintPeaks:
         self.shifts = params["shifts"]
         self.f_sd = params["freq-sd"]
         self.maxpksperframe = params["pks-per-frame"]
+        self.maxpairsperpeak = lm.MAXPAIRSPERPEAK
+        self.mindt = lm.MINDT
+        self.targetdt = lm.TARGETDT
+        self.targetdf = lm.TARGETDF
+        self.denoising = denoising
+        self.denoising_model = denoising_model
+        if self.denoising:
+            if self.denoising_model not in ("demucs", "unet"):
+                raise ValueError(
+                    f"denoising_model must be 'demucs' or 'unet', not {denoising_model!r}"
+                )
+            if denoising_model == "unet" and spec_denoiser is None:
+                raise ValueError("unet denoising requires spec_denoiser")
+            if denoising_model == "demucs" and wave_denoiser is None:
+                raise ValueError("demucs denoising requires wave_denoiser")
+        self.spec_denoiser = spec_denoiser
+        self.wave_denoiser = wave_denoiser
+        self.soundfiledur = 0.0
+
+    def _spec_hook(self) -> Optional[Callable]:
+        """The spectrogram denoiser, if this analyzer denoises with one."""
+        if self.denoising and self.denoising_model == "unet":
+            return self.spec_denoiser
+        return None
 
     def _as_batch(self, waveforms: Waveform) -> torch.Tensor:
-        return torch.as_tensor(waveforms, dtype=torch.float32, device=self.device)
+        """The batch on the analyzer's device, through the waveform
+        denoiser if this analyzer denoises with one."""
+        batch = torch.as_tensor(waveforms, dtype=torch.float32, device=self.device)
+        if self.denoising and self.denoising_model == "demucs":
+            batch = self.wave_denoiser(batch)
+        return batch
 
     def peaks_batch(
         self, waveforms: Waveform, valid_frames: Optional[np.ndarray] = None
@@ -99,8 +140,32 @@ class AudfprintPeaks:
             n_hop=self.n_hop,
             f_sd=self.f_sd,
             maxpksperframe=self.maxpksperframe,
+            denoiser=self._spec_hook(),
             valid_frames=vf,
         )
+
+    def peaks_and_spectrograms(self, waveforms: torch.Tensor):
+        """(B, T) waveforms on the device, taken as they are -> ((B,
+        n_fft//2, frames) bool peak masks, (B, n_fft//2 + 1, frames)
+        spectrograms as the peaks saw them). A spectrogram denoiser runs
+        once: what it returned to the peaks is what comes back."""
+        hook = self._spec_hook()
+        seen = []
+
+        def keep(sgram):
+            seen.append(sgram if hook is None else hook(sgram))
+            return seen[0]
+
+        masks = find_peaks_batch(
+            waveforms,
+            density=self.density,
+            n_fft=self.n_fft,
+            n_hop=self.n_hop,
+            f_sd=self.f_sd,
+            maxpksperframe=self.maxpksperframe,
+            denoiser=keep,
+        )
+        return masks, seen[0]
 
     def hashes_from_masks(self, masks: torch.Tensor):
         """(B, F, C) masks -> ((B, max_hashes, 2) int32, (B, max_hashes)
@@ -139,6 +204,7 @@ class AudfprintPeaks:
             f_sd=self.f_sd,
             maxpksperframe=self.maxpksperframe,
             valid_samples=vsamp,
+            denoiser=self._spec_hook(),
         )
         per_shift = []  # per shift: B arrays of (N, 2)
         for masks in masks_by_shift:
@@ -161,6 +227,104 @@ class AudfprintPeaks:
                 ).astype(np.int32)
             )
         return out
+
+    # ------------------------------------------------------------ parity API
+
+    def spreadpeaks(self, peaks, npoints=None, width: float = 4.0, base=None):
+        """Max of Gaussian bumps at (index, value) peaks."""
+        if base is None and npoints is not None:
+            vec = np.zeros(npoints, dtype=np.float32)
+        elif base is not None:
+            npoints = len(base)
+            vec = np.copy(base)
+        else:
+            raise ValueError("Please provide arguments npoints or base!")
+        idx = np.arange(npoints)
+        for pos, val in peaks:
+            vec = np.maximum(vec, val * np.exp(-0.5 * ((idx - pos) / width) ** 2))
+        return vec
+
+    def spreadpeaksinvector(self, vector, width: float = 4.0):
+        """:meth:`spreadpeaks` of the local maxima of ``vector``."""
+        peaks = locmax(vector, indices=True)
+        return self.spreadpeaks(
+            [(p, v) for p, v in zip(peaks, vector[peaks])],
+            npoints=len(vector), width=width,
+        )
+
+    def find_peaks(self, d: Waveform):
+        """Single-waveform peak extraction: (pklist of (column, bin) in
+        column-major order, (n_fft//2, frames) float32 peak mask,
+        (n_fft//2 + 1, frames) spectrogram as the peaks saw it), numpy.
+        The waveform is taken as it is: a waveform denoiser is applied by
+        :meth:`wavfile2peaks`, :meth:`peaks_batch` and :meth:`hashes_batch`."""
+        d = torch.as_tensor(d, dtype=torch.float32, device=self.device).reshape(-1)
+        if d.shape[0] == 0:
+            return [], np.array([]), np.array([])
+        masks, spec = self.peaks_and_spectrograms(d[None, :])
+        mask = masks[0].cpu().numpy()
+        cols, bins = np.nonzero(mask.T)  # column-major order
+        pklist = list(zip(cols.tolist(), bins.tolist()))
+        return pklist, mask.astype(np.float32), spec[0].cpu().numpy()
+
+    def wavfile2peaks(
+        self,
+        filename: Union[str, Waveform],
+        shifts: Optional[int] = None,
+        get_masks_waveforms: bool = False,
+    ):
+        """One file's (column, bin) peak list, or one list per shift with
+        ``shifts`` >= 2. With ``get_masks_waveforms`` returns (peaks_mask,
+        waveform, sgram) as numpy arrays, which the peaks-metrics harness
+        reads."""
+        d = self._as_batch(self._load(filename)[None, :])[0]
+        self.soundfiledur = d.shape[0] / self.target_sr
+        if get_masks_waveforms:
+            _, mask, sgram = self.find_peaks(d)
+            return mask, d.cpu().numpy(), sgram
+        if shifts is None or shifts < 2:
+            return self.find_peaks(d)[0]
+        return [
+            self.find_peaks(d[int(shift / self.shifts * self.n_hop) :])[0]
+            for shift in range(shifts)
+        ]
+
+    def peaks2landmarks(self, pklist):
+        """(column, bin) peaks -> (col, bin, bin2, dt) landmarks by the
+        sequential pairing loop; the batched path packs hashes straight from
+        the masks."""
+        landmarks = []
+        if len(pklist) > 0:
+            scols = pklist[-1][0] + 1
+            peaks_at: List[List[int]] = [[] for _ in range(scols)]
+            for col, bin_ in pklist:
+                peaks_at[col].append(bin_)
+            for col in range(scols):
+                for peak in peaks_at[col]:
+                    pairsthispeak = 0
+                    for col2 in range(col + self.mindt, min(scols, col + self.targetdt)):
+                        if pairsthispeak >= self.maxpairsperpeak:
+                            break
+                        for peak2 in peaks_at[col2]:
+                            if abs(peak2 - peak) < self.targetdf:
+                                if pairsthispeak < self.maxpairsperpeak:
+                                    landmarks.append((col, peak, peak2, col2 - col))
+                                    pairsthispeak += 1
+        return landmarks
+
+    def wavfile2hashes(self, filename: Union[str, Waveform]) -> np.ndarray:
+        """One file's unique sorted (time, hash) rows over ``self.shifts``
+        shifts."""
+        d = self._load(filename)
+        self.soundfiledur = d.shape[0] / self.target_sr
+        return self.hashes_batch(d[None, :], shifts=self.shifts)[0]
+
+    def ingest(self, hashtable: HashTable, filename: str) -> Tuple[float, int]:
+        """Store one file's hashes under its name; returns (duration in
+        seconds, number of hashes)."""
+        hashes = self.wavfile2hashes(filename)
+        hashtable.store(filename, hashes)
+        return self.soundfiledur, len(hashes)
 
     def _load(self, source: Union[str, Waveform]) -> Waveform:
         """One mono waveform at the analyzer's sample rate from an array or
@@ -205,3 +369,22 @@ class AudfprintPeaks:
             hashtable.store(name, hashes)
             total += len(hashes)
         return total
+
+
+# the reference implementation's class name
+Audfprint_peaks = AudfprintPeaks
+
+
+def landmarks2hashes(landmarks_list):
+    """(col, bin, bin2, dt) landmarks -> (time, 20-bit hash) int32 rows."""
+    landmarks = np.array(landmarks_list)
+    if landmarks.shape[0] == 0:
+        return np.zeros((0, 2), dtype=np.int32)
+    hashes = np.zeros((landmarks.shape[0], 2), dtype=np.int32)
+    hashes[:, 0] = landmarks[:, 0]
+    hashes[:, 1] = (
+        ((landmarks[:, 1] & 255) << 12)
+        | (((landmarks[:, 2] - landmarks[:, 1]) & 63) << 6)
+        | (landmarks[:, 3] & 63)
+    )
+    return hashes

@@ -5,7 +5,8 @@ musicfpaugment_tpu/afp/audfprint/hash_table.py).
 attempted-insert counts per bucket, reservoir sampling on overflow with the
 same ``default_rng(0)`` stream, and the same npz format, so a table written
 by either package loads in the other. The device copy the matcher gathers
-from is built by ``DeviceMatcher.refresh``.
+from is built by ``DeviceMatcher.refresh``; ``get_hits`` is the host lookup
+that the numpy ``Matcher`` oracle reads.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ class HashTable:
         self.hashesperid = np.zeros(0, np.uint32)
         self.ht_version = HT_VERSION
         self._name_idx: Optional[dict] = None
+        self._free_ids: List[int] = []
 
     def _name_index(self) -> dict:
         """name -> id dict, built lazily and kept in sync by ``name_to_id``."""
@@ -65,9 +67,14 @@ class HashTable:
                 return got
             if not add_if_missing:
                 raise ValueError("name " + str(name) + " not found")
-            id_ = len(self.names)
-            self.names.append(name)
-            self.hashesperid = np.append(self.hashesperid, [0])
+            if self._free_ids:  # an id that ``remove`` freed
+                id_ = self._free_ids.pop()
+                self.names[id_] = name
+                self.hashesperid[id_] = 0
+            else:
+                id_ = len(self.names)
+                self.names.append(name)
+                self.hashesperid = np.append(self.hashesperid, [0])
             idx[name] = id_
             return id_
         if not isinstance(name, (int, np.integer)):
@@ -112,8 +119,96 @@ class HashTable:
         np.add.at(self.counts, hs, 1)
         self.hashesperid[id_] += len(pairs)
 
+    # --------------------------------------------------------------- query
+
+    def get_entry(self, hash_: int) -> np.ndarray:
+        """[id, time] rows stored under one hash."""
+        vals = self.table[hash_, : min(self.depth, self.counts[hash_])]
+        maxtimemask = (1 << self.maxtimebits) - 1
+        ids = (vals >> self.maxtimebits).astype(np.int64) - 1
+        return np.stack([ids, vals & maxtimemask], axis=1).astype(np.int32)
+
+    def get_hits_dense(self, hashes: np.ndarray):
+        """Dense (Q, depth) gather for (time, hash) queries: (ids, dts,
+        valid_mask), dts = stored time - query time."""
+        hashmask = (1 << self.hashbits) - 1
+        maxtimemask = (1 << self.maxtimebits) - 1
+        qt = hashes[:, 0].astype(np.int64)
+        qh = hashes[:, 1].astype(np.int64) & hashmask
+        nids = np.minimum(self.depth, self.counts[qh])
+        tabvals = self.table[qh]
+        valid = np.arange(self.depth)[None, :] < nids[:, None]
+        ids = (tabvals >> self.maxtimebits).astype(np.int32) - 1
+        dts = ((tabvals & maxtimemask).astype(np.int64) - qt[:, None]).astype(np.int32)
+        return ids, dts, valid
+
+    def get_hits(self, hashes: np.ndarray) -> np.ndarray:
+        """[id, delta_time, hash, time] int32 rows for (time, hash) queries,
+        query by query, each bucket in slot order."""
+        hashes = np.asarray(hashes)
+        if hashes.size == 0:
+            return np.zeros((0, 4), np.int32)
+        ids, dts, valid = self.get_hits_dense(hashes)
+        qh = hashes[:, 1].astype(np.int64) & ((1 << self.hashbits) - 1)
+        out = np.stack(
+            [
+                ids,
+                dts,
+                np.broadcast_to(qh[:, None], ids.shape),
+                np.broadcast_to(hashes[:, 0].astype(np.int64)[:, None], ids.shape),
+            ],
+            axis=-1,
+        )
+        return out[valid].astype(np.int32)
+
+    # --------------------------------------------------------------- admin
+
     def totalhashes(self) -> int:
         return int(np.sum(self.counts))
+
+    def reset(self) -> None:
+        """Empty the table and forget every name."""
+        self.table[:, :] = 0
+        self.counts[:] = 0
+        self.names = []
+        self.hashesperid = np.zeros(0, np.uint32)
+        self._name_idx = None
+        self._free_ids = []
+
+    def remove(self, name: Union[str, int]) -> None:
+        """Remove every entry of one id; the id is freed for the next new
+        name."""
+        id_ = self.name_to_id(name)
+        id_in_table = (self.table >> self.maxtimebits) == id_ + 1
+        for hash_ in np.nonzero(np.max(id_in_table, axis=1))[0]:
+            n = min(self.depth, self.counts[hash_])
+            kept = self.table[hash_, :n][~id_in_table[hash_, :n]]
+            self.table[hash_] = np.concatenate(
+                [kept, np.zeros(self.depth - len(kept), np.uint32)]
+            )
+            self.counts[hash_] = len(kept)
+        self.names[id_] = None
+        self.hashesperid[id_] = 0
+        self._name_idx = None
+        self._free_ids.append(id_)
+
+    def retrieve(self, name: Union[str, int]) -> np.ndarray:
+        """All (time, hash) int32 rows stored for one id, by hash."""
+        id_ = self.name_to_id(name)
+        maxtimemask = (1 << self.maxtimebits) - 1
+        n = np.minimum(self.depth, self.counts)[:, None]
+        valid = np.arange(self.depth)[None, :] < n
+        match = valid & ((self.table >> self.maxtimebits) == id_ + 1)
+        hash_idx, slot_idx = np.nonzero(match)
+        times = self.table[hash_idx, slot_idx] & maxtimemask
+        return np.stack([times, hash_idx], axis=1).astype(np.int32)
+
+    def list(self, print_fn=None) -> None:
+        """Print "name (n hashes)" for every name in the table."""
+        print_fn = print_fn or print
+        for name, count in zip(self.names, self.hashesperid):
+            if name:
+                print_fn(str(name) + " (" + str(int(count)) + " hashes)")
 
     def save(self, name: str) -> None:
         """Atomic compressed npz write (the JAX package's format)."""
@@ -152,3 +247,4 @@ class HashTable:
             int(m) for m in meta
         )
         self._name_idx = None
+        self._free_ids = [i for i, n in enumerate(self.names) if n is None]

@@ -299,6 +299,7 @@ class DeviceMatcher:
         n_hop: int = 256,
         f_sd: float = 30.0,
         maxpksperframe: int = 5,
+        denoiser=None,
         max_query_hashes: int = 4096,
         valid_samples=None,
     ) -> List[Tuple[str, Any, int]]:
@@ -312,7 +313,9 @@ class DeviceMatcher:
         pow2ceil(3 * n_frames * shifts))``; a query past it is truncated
         after dedup, earliest hashes kept, with a warning.
         ``valid_samples`` (B,) marks real lengths of a batch stacked by
-        ``analyzer.pad_waveform_batch``."""
+        ``analyzer.pad_waveform_batch``. ``denoiser`` is a spectrogram
+        denoiser (``convert.unet_denoiser``), called once per shift on that
+        shift's normalised magnitudes."""
         waveforms = torch.as_tensor(waveforms, dtype=torch.float32, device=self.device)
         B, T = waveforms.shape
         n_frames = 1 + T // n_hop
@@ -336,6 +339,7 @@ class DeviceMatcher:
             f_sd=f_sd,
             maxpksperframe=maxpksperframe,
             valid_samples=vsamp,
+            denoiser=denoiser,
         )
         th_parts, valid_parts = [], []
         for masks in masks_by_shift:

@@ -12,7 +12,7 @@ time-major spectrogram, CPU tensors through the plain loops.
 from __future__ import annotations
 
 import functools
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -21,6 +21,10 @@ from musicfpaugment_torch.core.convolve import fft_convolve
 from musicfpaugment_torch.core.stft import stft
 
 NEG_INF = float("-inf")
+
+# a spectrogram denoiser: (B, n_fft//2 + 1, frames) normalised magnitudes ->
+# the same shape, float32 (``convert.unet_denoiser`` makes one of a UNet)
+Denoiser = Callable[[torch.Tensor], torch.Tensor]
 
 
 # ------------------------------------------------------------ frontend
@@ -37,15 +41,24 @@ def spectrogram_frontend(
     waveforms: torch.Tensor,
     n_fft: int = 512,
     n_hop: int = 256,
+    denoiser: Optional[Denoiser] = None,
     valid_frames: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """|STFT| / per-example max, (B, n_fft//2 + 1, frames). Columns at or
-    past ``valid_frames[b]`` are zeroed before the normalization."""
+    """|STFT| / per-example max, (B, n_fft//2 + 1, frames), then the
+    optional spectrogram ``denoiser`` on the normalised magnitude. Columns at
+    or past ``valid_frames[b]`` are zeroed before the normalization and
+    again after the denoiser (whose output there means nothing; its
+    receptive field crossing the boundary is an accepted approximation)."""
     sgram = torch.abs(stft(waveforms, n_fft=n_fft, hop_length=n_hop))
     if valid_frames is not None:
         sgram = torch.where(_col_mask(sgram.shape, valid_frames), sgram, 0.0)
     denom = torch.amax(sgram, dim=(-2, -1), keepdim=True)
-    return sgram / torch.clamp(denom, min=torch.finfo(sgram.dtype).tiny)
+    sgram = sgram / torch.clamp(denom, min=torch.finfo(sgram.dtype).tiny)
+    if denoiser is not None:
+        sgram = denoiser(sgram)
+        if valid_frames is not None:
+            sgram = torch.where(_col_mask(sgram.shape, valid_frames), sgram, 0.0)
+    return sgram
 
 
 def log_hpf_frontend(
@@ -201,6 +214,7 @@ def prune_input(
     valid_frames: Optional[torch.Tensor] = None,
     time_major: bool = False,
     out: Optional[torch.Tensor] = None,
+    denoiser: Optional[Denoiser] = None,
 ) -> torch.Tensor:
     """(B, T) waveforms -> the (B, n_fft//2, frames) float32 log-HPF
     spectrogram both prunes take; with ``valid_frames``, padded columns are
@@ -210,8 +224,9 @@ def prune_input(
     ``time_major`` gives the same values as (B, frames, n_fft//2), the
     layout of the CUDA kernels: the transpose rides the one copy that drops
     the Nyquist row and fills the padded columns. ``out`` (of the result's
-    shape, possibly a strided slice of a larger batch) receives that copy."""
-    sgram = spectrogram_frontend(waveforms, n_fft, n_hop, valid_frames)
+    shape, possibly a strided slice of a larger batch) receives that copy.
+    ``denoiser`` is :func:`spectrogram_frontend`'s."""
+    sgram = spectrogram_frontend(waveforms, n_fft, n_hop, denoiser, valid_frames)
     logsg = log_hpf_frontend(sgram, valid_frames)
     mask = None if valid_frames is None else _col_mask(logsg.shape, valid_frames)
     if time_major:
@@ -232,6 +247,7 @@ def stacked_prune_input(
     n_hop: int = 256,
     valid_frames: Optional[Sequence[Optional[torch.Tensor]]] = None,
     time_major: bool = False,
+    denoiser: Optional[Denoiser] = None,
 ):
     """:func:`prune_input` of several (B, T_s) waveform batches, stacked
     along the batch axis into one (S*B, F, frames) tensor ((S*B, frames, F)
@@ -239,12 +255,15 @@ def stacked_prune_input(
     writes its slice, columns past a part's own count are -1e30, and each
     row's valid frame count is its part's (``valid_frames[s]`` where given).
     Returns (stack, (S*B,) int32 valid frames, [frames_s]). A single part
-    is not padded and keeps its ``valid_frames`` (possibly ``None``)."""
+    is not padded and keeps its ``valid_frames`` (possibly ``None``). A
+    ``denoiser`` is called once per part, on that part's own (B, F + 1,
+    frames_s) spectrogram, so the stack equals denoising each part alone."""
     S, B = len(parts), parts[0].shape[0]
     vfs = list(valid_frames) if valid_frames is not None else [None] * S
     n_cols = [1 + int(p.shape[-1]) // n_hop for p in parts]
     if S == 1:
-        return prune_input(parts[0], n_fft, n_hop, vfs[0], time_major), vfs[0], n_cols
+        x = prune_input(parts[0], n_fft, n_hop, vfs[0], time_major, denoiser=denoiser)
+        return x, vfs[0], n_cols
     dev = parts[0].device
     wide, F = max(n_cols), n_fft // 2
     shape = (S * B, wide, F) if time_major else (S * B, F, wide)
@@ -256,7 +275,7 @@ def stacked_prune_input(
         dst = cols[rows, : n_cols[s]]
         prune_input(
             part, n_fft, n_hop, vfs[s], time_major,
-            out=dst if time_major else dst.transpose(1, 2),
+            out=dst if time_major else dst.transpose(1, 2), denoiser=denoiser,
         )
         cols[rows, n_cols[s] :] = -1e30
         vf[rows] = n_cols[s] if vfs[s] is None else vfs[s]
@@ -271,6 +290,7 @@ def find_peaks_parts(
     f_sd: float = 30.0,
     maxpksperframe: int = 5,
     valid_frames: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    denoiser: Optional[Denoiser] = None,
 ) -> List[torch.Tensor]:
     """Peak masks of several (B, T_s) waveform batches (the time shifts of
     one batch) with one forward and one backward prune for all of them,
@@ -287,7 +307,9 @@ def find_peaks_parts(
     there. On CPU tensors the prunes are the plain loops above."""
     B = parts[0].shape[0]
     on_card = parts[0].is_cuda
-    x, vf, n_cols = stacked_prune_input(parts, n_fft, n_hop, valid_frames, on_card)
+    x, vf, n_cols = stacked_prune_input(
+        parts, n_fft, n_hop, valid_frames, on_card, denoiser
+    )
     a_dec = prune_decay(density, n_hop)
     if on_card:
         from musicfpaugment_torch.afp.audfprint import peaks_cuda
@@ -317,6 +339,7 @@ def find_peaks_shifts(
     f_sd: float = 30.0,
     maxpksperframe: int = 5,
     valid_samples: Optional[torch.Tensor] = None,
+    denoiser: Optional[Denoiser] = None,
 ) -> List[torch.Tensor]:
     """Peak masks of ``shifts`` time-shifted copies of one (B, T) batch,
     shift s dropping ``int(s / shifts * n_hop)`` leading samples, through
@@ -331,7 +354,7 @@ def find_peaks_shifts(
         vfs = [1 + (valid_samples - off) // n_hop for off in offsets]
     return find_peaks_parts(
         [waveforms[:, off:] for off in offsets],
-        density, n_fft, n_hop, f_sd, maxpksperframe, vfs,
+        density, n_fft, n_hop, f_sd, maxpksperframe, vfs, denoiser,
     )
 
 
@@ -343,8 +366,10 @@ def find_peaks_batch(
     f_sd: float = 30.0,
     maxpksperframe: int = 5,
     valid_frames: Optional[torch.Tensor] = None,
+    denoiser: Optional[Denoiser] = None,
 ) -> torch.Tensor:
-    """(B, T) waveforms -> (B, n_fft//2, frames) bool peak masks.
+    """(B, T) waveforms -> (B, n_fft//2, frames) bool peak masks, of the
+    spectrogram as ``denoiser`` returns it where one is given.
 
     On a CUDA tensor both prunes run as the hand-written kernels of
     ``peaks_cuda.py`` (which raise if they cannot build or launch) on the
@@ -359,7 +384,7 @@ def find_peaks_batch(
     """
     return find_peaks_parts(
         [waveforms], density, n_fft, n_hop, f_sd, maxpksperframe,
-        None if valid_frames is None else [valid_frames],
+        None if valid_frames is None else [valid_frames], denoiser,
     )[0]
 
 

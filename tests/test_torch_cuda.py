@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain PyTorch versions.
+"""The port on the card: its CUDA kernels against their plain PyTorch
+versions, and the UNet, the denoiser hook and the metrics against the CPU.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 neither JAX nor the JAX package, so it also runs where JAX is not installed:
@@ -16,10 +17,13 @@ import pytest
 import torch
 from scipy.ndimage import gaussian_filter
 
+from musicfpaugment_torch import convert
 from musicfpaugment_torch.afp.audfprint import AudfprintPeaks, DeviceMatcher, HashTable
 from musicfpaugment_torch.afp.audfprint import peaks as tp
 from musicfpaugment_torch.afp.audfprint import peaks_cuda
 from musicfpaugment_torch.data.synthetic import synthetic_clean_batches
+from musicfpaugment_torch.models import UNet
+from musicfpaugment_torch.testing import metrics as tmetrics
 from musicfpaugment_torch.testing.parameters import afp_settings
 
 A_DEC = tp.prune_decay(20.0, 256)
@@ -234,3 +238,88 @@ def test_augment_chain_on_card_matches_cpu(cuda_device, condition, mode):
     halves = torch.cat([on_card.apply(x[:8], [{k: v[:8] for k, v in d.items()} for d in draws]),
                         on_card.apply(x[8:], [{k: v[8:] for k, v in d.items()} for d in draws])])
     assert float((halves - got).abs().max()) <= 1e-6
+
+
+def _seeded_unet(seed, **kwargs):
+    """A UNet at base=16 on the CPU with fan-in-scaled kernels and
+    BatchNorm statistics that are not trivial, from a torch seed."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.random.fork_rng():
+        torch.manual_seed(seed)  # the layers' own initial kernels
+        model = UNet(1, 1, base=16, **kwargs)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.copy_(0.8 + 0.4 * torch.rand(m.weight.shape, generator=g))
+                m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(m.running_mean.shape, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(m.running_var.shape, generator=g))
+    return model.eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bilinear", [False, True])
+def test_unet_on_card_matches_cpu(cuda_device, bilinear):
+    """Strict float32 on the card against the CPU: 1e-4 of the largest
+    output (TF32 would read about 1e-3); bfloat16 compute within 5e-2."""
+    on_cpu = _seeded_unet(1, bilinear=bilinear)
+    x = torch.rand((3, 257, 94), generator=torch.Generator().manual_seed(2))
+    want = convert.unet_denoiser(on_cpu)(x)
+    on_card = _seeded_unet(1, bilinear=bilinear).to(cuda_device)
+    got = convert.unet_denoiser(on_card)(x.to(cuda_device))
+    assert got.is_cuda and got.dtype == torch.float32 and got.shape == x.shape
+    top = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * top
+    half = _seeded_unet(1, bilinear=bilinear, dtype=torch.bfloat16).to(cuda_device)
+    low = convert.unet_denoiser(half)(x.to(cuda_device))
+    assert low.dtype == torch.float32
+    assert float((low.cpu() - want).abs().max()) <= 5e-2 * top
+    # the strict forward leaves the process's TF32 setting as it found it
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cudnn.enabled
+
+
+@pytest.mark.cuda
+def test_denoiser_hook_on_card_matches_cpu_route(cuda_device):
+    x = next(synthetic_clean_batches(4, 24000, seed=61, sample_rate=8000))
+    on_cpu = _seeded_unet(3)
+    t_cpu = convert.unet_denoiser(on_cpu)
+    t_card = convert.unet_denoiser(_seeded_unet(3).to(cuda_device))
+    # let the untrained network move every bin by up to 20%
+    hook_cpu = lambda s: s * (1.0 + 0.2 * torch.tanh(t_cpu(s)))
+    hook_card = lambda s: s * (1.0 + 0.2 * torch.tanh(t_card(s)))
+    sg_cpu = tp.spectrogram_frontend(torch.from_numpy(x), denoiser=hook_cpu)
+    sg_card = tp.spectrogram_frontend(torch.from_numpy(x).to(cuda_device), denoiser=hook_card)
+    assert float((sg_card.cpu() - sg_cpu).abs().max()) <= 1e-5 * float(sg_cpu.abs().max())
+    peaks_cuda.reset_launch_counts()
+    got = tp.find_peaks_shifts(torch.from_numpy(x).to(cuda_device), 4, denoiser=hook_card)
+    assert peaks_cuda.LAUNCHES == {"forward_prune": 1, "backward_prune": 1}
+    want = tp.find_peaks_shifts(torch.from_numpy(x), 4, denoiser=hook_cpu)
+    for g, w in zip(got, want):
+        assert float((g.cpu() == w).float().mean()) >= FROM_WAVEFORM_AGREEMENT and g.any()
+    analyzer = AudfprintPeaks(afp_settings["audfprint"], denoising=True, denoising_model="unet",
+                              spec_denoiser=hook_card, device=cuda_device)
+    assert torch.equal(analyzer.peaks_batch(x), tp.find_peaks_batch(
+        torch.from_numpy(x).to(cuda_device), denoiser=hook_card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tolerance", [0, 1])
+def test_metrics_on_card_tensors_match_cpu(cuda_device, tolerance):
+    r = np.random.default_rng(7)
+    gt = r.random((4, 256, 251)) < 0.01
+    pred = (gt & (r.random(gt.shape) < 0.5)) | (r.random(gt.shape) < 0.005)
+    got = tmetrics.batch_peak_metrics(
+        torch.from_numpy(pred).to(cuda_device), torch.from_numpy(gt).to(cuda_device),
+        tolerance, reduce=False)
+    want = tmetrics.batch_peak_metrics(pred, gt, tolerance, reduce=False)
+    for key in ("precision", "recall", "f1"):
+        assert got[key].is_cuda
+        torch.testing.assert_close(got[key].cpu(), want[key], rtol=0, atol=1e-6)
+    a = torch.from_numpy(r.random((4, 257, 251)).astype(np.float32))
+    b = a + 0.01 * torch.from_numpy(r.standard_normal(a.shape).astype(np.float32))
+    torch.testing.assert_close(
+        tmetrics.batch_psnr(a.to(cuda_device), b.to(cuda_device)).cpu(), tmetrics.batch_psnr(a, b),
+        rtol=0, atol=1e-4)
+    assert tmetrics.Recall(tolerance)(torch.from_numpy(pred[:1]).to(cuda_device),
+                                      torch.from_numpy(gt[:1]).to(cuda_device)) == pytest.approx(
+        tmetrics.Recall(tolerance)(pred[:1], gt[:1]), abs=1e-6)

@@ -18,6 +18,10 @@ from musicfpaugment_torch.afp.audfprint.analyzer import pad_waveform_batch
 from musicfpaugment_torch.data.synthetic import synthetic_clean_batches
 from musicfpaugment_torch.testing.parameters import afp_settings
 
+from torch_port_helpers import few_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("few_threads")
+
 SR = 8000
 N_HOP = 256
 
@@ -116,7 +120,7 @@ def test_byte_masks_view_as_bool_masks():
 
 def _peaks_shift_loop(
     waveforms, shifts, density=20.0, n_fft=512, n_hop=256, f_sd=30.0,
-    maxpksperframe=5, valid_samples=None,
+    maxpksperframe=5, valid_samples=None, denoiser=None,
 ):
     """One ``find_peaks_batch`` per shift: what ``find_peaks_shifts`` must
     equal."""
@@ -127,7 +131,8 @@ def _peaks_shift_loop(
         vf = None if valid_samples is None else 1 + (valid_samples - off) // n_hop
         out.append(
             tp.find_peaks_batch(
-                waveforms[:, off:], density, n_fft, n_hop, f_sd, maxpksperframe, vf
+                waveforms[:, off:], density, n_fft, n_hop, f_sd, maxpksperframe, vf,
+                denoiser,
             )
         )
     return out

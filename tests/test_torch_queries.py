@@ -34,6 +34,10 @@ from musicfpaugment_tpu.testing.audfprint_exps import (
     create_fp_database as j_create_fp_database,
 )
 
+from torch_port_helpers import few_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("few_threads")
+
 SR = 8000
 N_TRACKS = 16
 CONDITIONS = ("bn_p10", "recording_device")
@@ -201,11 +205,28 @@ def test_identification_rate_matches_jax_matcher(corpus, tmp_path, monkeypatch):
     assert results["bn_p10"]["No Denoising"] >= 0.9
 
 
-def test_identification_rate_raises_for_a_denoiser_and_defaults_to_the_card(corpus):
-    for kw in ({"denoising_model": "unet"}, {"spec_denoiser": object()}, {"wave_denoiser": object()}):
-        with pytest.raises(NotImplementedError, match="not ported"):
+def test_identification_rate_raises_for_a_denoiser_and_defaults_to_the_card(corpus, tmp_path, monkeypatch):
+    """With a denoising model the three accuracies come back for every
+    condition; a denoiser without its model's name raises; no device means
+    the card."""
+    monkeypatch.setattr(texps, "RESULTS_DIR", str(tmp_path / "results"))
+    results = texps.identification_rate_results(
+        "unet", spec_denoiser=lambda sgram: sgram, query_paths=corpus["dirs"],
+        dbpath=corpus["t_ht"], batch_size=8, device="cpu")
+    assert list(results) == ["cleans", *CONDITIONS]
+    for row in results.values():
+        assert list(row) == ["No Denoising", "With Denoising", "Mix Pipeline"]
+        # a denoiser that returns its input: the three arms agree
+        assert row["With Denoising"] == row["Mix Pipeline"] == row["No Denoising"]
+    assert results["cleans"]["No Denoising"] == 1.0
+    assert os.path.isfile(tmp_path / "results" / "accuracy_audfprint_unet.json")
+    for kw in ({"spec_denoiser": object()}, {"wave_denoiser": object()}):
+        with pytest.raises(ValueError, match="needs its denoising_model"):
             texps.identification_rate_results(
                 query_paths=corpus["dirs"], dbpath=corpus["t_ht"], device="cpu", **kw)
+    with pytest.raises(ValueError, match="requires spec_denoiser"):
+        texps.identification_rate_results(
+            "unet", query_paths=corpus["dirs"], dbpath=corpus["t_ht"], device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             texps.identification_rate_results(query_paths=corpus["dirs"], dbpath=corpus["t_ht"])

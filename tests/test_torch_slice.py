@@ -32,6 +32,10 @@ from musicfpaugment_torch.testing.audfprint_exps import (
 )
 from musicfpaugment_torch.testing.parameters import afp_settings
 
+from torch_port_helpers import few_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("few_threads")
+
 SR = 8000
 DEPTH = 20
 COUNT_SLACK = 2

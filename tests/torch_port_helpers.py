@@ -11,6 +11,7 @@ transform or the chain called with the same key.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from musicfpaugment_tpu.augment import transforms as JT
@@ -132,3 +133,78 @@ def port_banks(noise_bank, ir_bank):
             np.asarray(ir_bank.irs), np.asarray(ir_bank.lengths),
             ir_bank.sample_rate, device="cpu"),
     )
+
+
+# ------------------------------------------------------------------ UNet
+
+
+@pytest.fixture(scope="module")
+def few_threads():
+    """Two intra-op threads for a module's tests: convolutions on every core
+    from several test processes at once take many times longer than on two
+    each. Import it into a test module and name it in ``usefixtures``."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
+def flax_unet_variables(model, sample_shape, seed=0):
+    """(params, batch_stats) of a Flax UNet as nested dicts of numpy arrays:
+    kernels from ``model.init``; batch statistics, scales and biases redrawn
+    from a numpy seed, so that no BatchNorm is trivial."""
+    variables = model.init(jax.random.PRNGKey(seed), jnp.zeros(sample_shape, jnp.float32))
+    variables = jax.tree_util.tree_map(np.asarray, variables)
+    rng = np.random.default_rng(seed)
+
+    def redraw(tree):
+        out = {}
+        for name, leaf in tree.items():
+            if hasattr(leaf, "items"):
+                out[name] = redraw(leaf)
+            elif name == "kernel":
+                out[name] = np.array(leaf)
+            elif name == "var":
+                out[name] = rng.uniform(0.5, 1.5, leaf.shape).astype(np.float32)
+            elif name == "scale":
+                out[name] = rng.uniform(0.8, 1.2, leaf.shape).astype(np.float32)
+            else:  # bias, mean
+                out[name] = rng.normal(0.0, 0.1, leaf.shape).astype(np.float32)
+        return out
+
+    return redraw(variables["params"]), redraw(variables["batch_stats"])
+
+
+def port_unet(params, batch_stats, **kwargs):
+    """The port's UNet (on the CPU, in eval mode) carrying Flax weights."""
+    from musicfpaugment_torch import convert
+    from musicfpaugment_torch.models import UNet
+
+    state = convert.unet_state_dict_from_flax(params, batch_stats)
+    model = UNet(
+        state["inc.conv1.weight"].shape[1], state["outc.weight"].shape[0],
+        bilinear="up1.up.weight" not in state, base=state["inc.conv1.weight"].shape[0],
+        **kwargs,
+    )
+    model.load_state_dict(state, strict=True)
+    return model.eval()
+
+
+def make_identity_unet(model):
+    """Give a ``UNet(1, 1)`` the weights that make it the identity on
+    non-negative input: centre taps along the skip path inc -> up4 -> outc,
+    unit BatchNorm, zeros everywhere else (the deeper levels still run).
+    Returns the model in eval mode."""
+    with torch.no_grad():
+        for p in model.parameters():
+            p.zero_()
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.fill_(1.0)
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0 - m.eps)
+        # up4's first input channels are the skip's: concat is [skip, upsampled]
+        for conv in (model.inc.conv1, model.inc.conv2, model.up4.conv.conv1, model.up4.conv.conv2):
+            conv.weight[0, 0, 1, 1] = 1.0
+        model.outc.weight[0, 0, 0, 0] = 1.0
+    return model.eval()
