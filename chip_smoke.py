@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Drives the audfprint identification path of ``musicfpaugment_torch`` end to
-end on the card, clean and degraded queries, through the entry points a user
-calls:
+end on the card, clean and degraded queries, and the training of its UNet
+denoiser, through the entry points a user calls:
 
 1. device  - the card's name and power limit;
 2. build   - compiles the CUDA kernels from ``musicfpaugment_torch/csrc``;
@@ -58,13 +58,37 @@ calls:
              ``default_parameters`` queries against their clean crops, read
              from ``.npy`` files in a temporary directory: eight finite
              numbers, ``f1_den`` within 1e-3 of ``f1_score_no_den``,
-             ``psnr_den_spec`` within 0.01 dB of ``psnr_no_den_spec``.
+             ``psnr_den_spec`` within 0.01 dB of ``psnr_no_den_spec``;
+13. train_step_check - one strict float32 "spec" step of ``UNet(base=8,
+             rate=0)`` through ``Trainer.train_step`` on the card and on the
+             CPU from the same weights and batch: loss within 1e-5
+             (relative) and running statistics within 1e-5 of their largest
+             values; the same step in float64, every gradient within 1e-4;
+             every convolution of the float32 card step recomputed in
+             float64 from its own operands, within 1e-4 (TF32 anywhere in
+             the backward pass reads ~3e-4);
+14. train  - ``UNet(1, 1, rate=0.05, base=64)`` trained by ``Trainer`` on
+             the card: batch 128 of 3 s synthetic clips, ``default_parameters``
+             augmentation with ``dcase_shaped_banks()`` inside each step,
+             lr 1e-3, 2 epochs of 16 steps and 4 validation batches, with
+             checkpoints; once in strict float32 and once in bfloat16 from
+             the same seeded weights: step ms, examples/s, TFLOP/s, peak
+             memory, the card's busy share over one step, the baseline and
+             per-epoch validation loss and PSNR (the loss must fall, every
+             number be finite); then a resume from the float32 run's
+             ``last_epoch`` that must run one more epoch;
+15. trained_denoiser - phases 11 and 12 again with the float32 run's best
+             checkpoint as the denoiser, in strict float32, with TF32 allowed
+             and in bfloat16: the three accuracies, queries/s, the peak
+             metrics, and how far the two faster ones move verdicts, peak
+             masks and the denoised F1.
 
 Every phase prints a JSON line. Launch counters are zeroed just before
 ingest and read after match: both kernels must have launched in each (once
 per ingest batch, once per match batch whatever the number of shifts). They
 are zeroed again before the augmented conditions, before the denoised
-accuracies and before the peak metrics, and read after each.
+accuracies, before the peak metrics and before the trained-denoiser runs,
+and read after each.
 The line before the last is the kernel table, the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
 
@@ -103,9 +127,9 @@ from musicfpaugment_torch.augment import transforms as T
 from musicfpaugment_torch.convert import unet_denoiser
 from musicfpaugment_torch.core import filters
 from musicfpaugment_torch.core.convolve import fft_convolve
-from musicfpaugment_torch.data.synthetic import synth_tracks_device
+from musicfpaugment_torch.data.synthetic import synth_tracks_device, synthetic_clean_batches
+from musicfpaugment_torch.device import cudnn_tf32
 from musicfpaugment_torch.models import UNet
-from musicfpaugment_torch.models.unet import cudnn_tf32
 from musicfpaugment_torch.testing.audfprint_exps import (
     PEAKS_METRICS,
     compute_accuracy_batched,
@@ -116,6 +140,8 @@ from musicfpaugment_torch.testing.parameters import (
     afp_settings,
     test_pipelines_parameters,
 )
+from musicfpaugment_torch.train import parameters as TP
+from musicfpaugment_torch.train.trainer import EarlyStopping, ReduceLROnPlateau, Trainer
 
 SR = 8000
 N_TRACKS = 10_000
@@ -147,6 +173,19 @@ MIN_MASK_AGREEMENT = 0.999
 ACCURACY_SLACK = 2 / DENOISED_QUERIES
 MAX_F1_GAP = 1e-3
 MAX_PSNR_GAP_DB = 0.01
+# training: the JAX CLI's UNet run (lr 1e-3, batch 128, 3 s clips, factor
+# 0.5 losses) cut to 2 epochs of 16 steps and 4 validation batches
+TRAIN_SAMPLES = TP.DURATION * SR
+TRAIN_STEPS = 16
+TRAIN_VAL_STEPS = 4
+TRAIN_EPOCHS = 2
+TRAIN_LR = 1e-3
+# card against CPU on one strict float32 step, relative to the largest
+# value: float32 rounding reads ~1e-6, TF32 convolutions ~1e-3
+MAX_STEP_LOSS_REL = 1e-5
+MAX_STEP_GRAD_REL = 1e-4
+MAX_STEP_STATS_REL = 1e-5
+MAX_CONV_BACKWARD_REL = 1e-4
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32 outside the
 # tensor cores
@@ -351,31 +390,50 @@ def stage_times(fp, x) -> dict:
 
 
 def conv_routes(dev) -> dict:
-    """Direct grouped convolution against the FFT route at (256, 64000) with
-    33 and 513 taps: ms of each, their difference, and what TF32 would cost
-    the direct route (error against float64 with the flag off, as the port
-    runs it, and on)."""
+    """Direct grouped convolution (cuDNN on, TF32 off, as the port runs it)
+    against the FFT route at (256, 64000) with 33 to 513 taps: ms of each,
+    their difference, and what TF32 would change on the direct route (its ms
+    and its error against float64). ``cudnn_enabled`` is read inside the
+    direct route's call."""
     g = torch.Generator().manual_seed(3)
     x = torch.randn((AUGMENT_BATCH, QUERY_SECONDS * SR), generator=g).to(dev)
+    seen = []
+    conv1d = filters.F.conv1d
+
+    def spy(*args, **kwargs):
+        seen.append(torch.backends.cudnn.enabled)
+        return conv1d(*args, **kwargs)
+
     out = {}
-    for half in (16, 256):
+    for half in (16, 64, 128, 256):
         taps = 2 * half + 1
         kernels = filters.lowpass_kernels(torch.linspace(0.05, 0.45, AUGMENT_BATCH).to(dev), half)
         padded = filters._edge_pad(x, half)
-        direct = filters._direct_conv_valid(padded, kernels)
+        filters.F.conv1d = spy
+        try:
+            direct = filters._direct_conv_valid(padded, kernels)
+        finally:
+            filters.F.conv1d = conv1d
         by_fft = fft_convolve(padded, kernels, mode="valid")
         exact = filters._direct_conv_valid(padded.double(), kernels.double())
-        with torch.backends.cudnn.flags(allow_tf32=True):
-            k = torch.flip(kernels, dims=[-1])[:, None, :]
-            tf32 = torch.nn.functional.conv1d(padded[None], k, groups=AUGMENT_BATCH)[0]
+        k = torch.flip(kernels, dims=[-1])[:, None, :]
+
+        def tf32_direct():
+            with cudnn_tf32(True):
+                return torch.nn.functional.conv1d(padded[None], k, groups=AUGMENT_BATCH)[0]
+
         out[f"{taps}_taps"] = {
             "direct_ms": gpu_ms(lambda: filters._direct_conv_valid(padded, kernels), 10),
+            "direct_tf32_allowed_ms": gpu_ms(tf32_direct, 10),
             "fft_ms": gpu_ms(lambda: fft_convolve(padded, kernels, mode="valid"), 10),
             "direct_vs_fft_max_abs": float((direct - by_fft).abs().max()),
             "direct_err_vs_float64": float((direct - exact).abs().max()),
             "fft_err_vs_float64": float((by_fft - exact).abs().max()),
-            "direct_tf32_allowed_err_vs_float64": float((tf32 - exact).abs().max()),
+            "direct_tf32_allowed_err_vs_float64": float((tf32_direct() - exact).abs().max()),
         }
+    if seen != [True] * len(out):
+        fail(f"cuDNN was off inside the filters' direct route: {seen}")
+    out["cudnn_enabled"] = True
     return out
 
 
@@ -561,6 +619,294 @@ def profile_call(label: str, fn) -> dict:
         "cudnn_convolutions_share_of_device": conv_ms / device_ms,
         "top_ops": top(host_ops), "top_kernels": top(on_card),
     }
+
+
+def _rel_max(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def conv_backward_probe(model: torch.nn.Module):
+    """Hooks on every convolution of ``model``. After a backward pass,
+    ``check()`` recomputes each layer's weight and input gradients in
+    float64 from the operands the layer saw and returns the largest
+    difference relative to the tensor's largest value: 1e-7 to 3e-5 for a
+    float32 backward (sums of 1e4-1e5 products), ~3e-4 for one that took
+    TF32. The operands are the run's own, so the check does not depend
+    on the ReLU and max-pool decisions of the forward pass."""
+    seen = {}
+
+    def forward_hook(mod, args, out):
+        # the weights as the forward pass used them: the optimizer moves them
+        seen[mod] = [args[0].detach(), None, None,
+                     {k: v.detach().clone() for k, v in mod.named_parameters()}]
+
+    def backward_hook(mod, grad_input, grad_output):
+        seen[mod][1] = grad_output[0].detach()
+        seen[mod][2] = None if grad_input[0] is None else grad_input[0].detach()
+
+    hooks = []
+    for m in model.modules():
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+            hooks.append(m.register_forward_hook(forward_hook))
+            hooks.append(m.register_full_backward_hook(backward_hook))
+
+    def check() -> float:
+        for h in hooks:
+            h.remove()
+        worst = 0.0
+        for mod, (x, g_out, g_in, weights) in seen.items():
+            ref = copy.deepcopy(mod)
+            ref.load_state_dict(weights)
+            ref.double().zero_grad(set_to_none=True)
+            x64 = x.double().requires_grad_(g_in is not None)
+            ref(x64).backward(g_out.double())
+            pairs = [(mod.weight.grad, ref.weight.grad)]
+            if mod.bias is not None:
+                pairs.append((mod.bias.grad, ref.bias.grad))
+            if g_in is not None:
+                pairs.append((g_in, x64.grad))
+            worst = max([worst] + [_rel_max(a.double(), b) for a, b in pairs])
+        return worst
+
+    return check
+
+
+def train_step_check(dev) -> dict:
+    """One strict float32 "spec" step of ``UNet(base=8, rate=0)`` through
+    ``Trainer.train_step`` on the card and on the CPU from the same weights
+    and batch: the loss and the running statistics. The gradients of a ReLU
+    network in float32 jump where rounding flips a ReLU or a max-pool
+    choice (measured up to 8e-2 of a tensor's largest value between two
+    float32 runs, either side as often as the other nearer float64), so
+    the same step is compared again in float64, and every convolution of
+    the float32 card step is recomputed in float64 from its own operands
+    (``conv_backward_probe``): that is what catches TF32 in the backward
+    pass."""
+    clean = next(synthetic_clean_batches(8, TRAIN_SAMPLES, SR, seed=UNET_SEED))
+    r = np.random.default_rng(UNET_SEED)
+    aug = (0.7 * clean + 0.2 * r.standard_normal(clean.shape)).astype(np.float32)
+    runs, probe_err = {}, None
+    for label, device, dtype in (("cpu", "cpu", torch.float32), ("card", dev, torch.float32),
+                                 ("cpu64", "cpu", torch.float64), ("card64", dev, torch.float64)):
+        torch.manual_seed(UNET_SEED)
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer = Trainer(UNet(1, 1, rate=0.0, base=8).to(dtype), iter(()), 1, iter(()), 1,
+                              TRAIN_LR, 2, tmp, input_type="spec", device=device)
+        probe = conv_backward_probe(trainer.model) if label == "card" else None
+        terms = trainer.train_step(torch.from_numpy(clean).to(device, dtype),
+                                   torch.from_numpy(aug).to(device, dtype))
+        if probe is not None:
+            probe_err = probe()
+        runs[label] = (
+            float(terms["loss"]),
+            {k: p.grad.cpu() for k, p in trainer.model.named_parameters()},
+            {k: v.cpu() for k, v in trainer.model.state_dict().items() if "running_" in k},
+        )
+    (loss_c, grads_c, stats_c), (loss_g, grads_g, stats_g) = runs["cpu"], runs["card"]
+    grads_c64, grads_g64 = runs["cpu64"][1], runs["card64"][1]
+    line = {
+        "phase": "train_step_check", "base": 8, "batch": clean.shape[0], "samples": clean.shape[1],
+        "loss_cpu": loss_c, "loss_card": loss_g, "loss_rel": abs(loss_g - loss_c) / abs(loss_c),
+        "stats_rel_max": max(_rel_max(stats_g[k], stats_c[k]) for k in stats_c),
+        "grad_rel_max_float64": max(_rel_max(grads_g64[k], grads_c64[k]) for k in grads_c64),
+        "conv_backward_vs_float64_max": probe_err,
+        "grad_rel_max_float32_not_held": max(_rel_max(grads_g[k], grads_c[k]) for k in grads_c),
+        "grad_rel_max_float32_cpu_vs_float64_not_held": max(
+            _rel_max(grads_c[k].double(), grads_c64[k]) for k in grads_c),
+        "tensors": len(grads_c),
+    }
+    emit(line)
+    if not line["loss_rel"] <= MAX_STEP_LOSS_REL:
+        fail(f"train step: the card's loss is {line['loss_rel']} (relative) from the CPU's")
+    if not line["stats_rel_max"] <= MAX_STEP_STATS_REL:
+        fail(f"train step: running statistics {line['stats_rel_max']} from the CPU's")
+    if not line["grad_rel_max_float64"] <= MAX_STEP_GRAD_REL:
+        fail(f"train step: a float64 gradient on the card is {line['grad_rel_max_float64']} "
+             "of its largest value from the CPU's")
+    if not probe_err <= MAX_CONV_BACKWARD_REL:
+        fail(f"train step: a convolution's backward on the card is {probe_err} of its largest "
+             "value from float64 on the same operands (TF32 in the backward pass?)")
+    return line
+
+
+def train_phase(dev, noise_bank, ir_bank, ckpt_root: str) -> str:
+    """The published UNet (base=64, rate 0.05) trained on the card with
+    default_parameters augmentation inside each step, once in strict float32
+    and once in bfloat16 from the same seeded weights: TRAIN_EPOCHS epochs of
+    TRAIN_STEPS steps, checkpoints as ``--save`` writes them, then a resume
+    from the float32 run's ``last_epoch`` and one more epoch. Returns the
+    float32 run's best checkpoint path."""
+    params = test_pipelines_parameters["default_parameters"]
+    fp = AugmentFP(noise_bank, SR, parameters=params, impulse_response_dir=ir_bank, device=dev)
+    t0 = time.perf_counter()
+    train_batches = [b for b, _ in zip(synthetic_clean_batches(TP.BATCH_SIZE, TRAIN_SAMPLES, SR, seed=59),
+                                       range(TRAIN_STEPS))]
+    val_batches = [b for b, _ in zip(synthetic_clean_batches(TP.BATCH_SIZE, TRAIN_SAMPLES, SR, seed=4),
+                                     range(TRAIN_VAL_STEPS))]
+    data_s = time.perf_counter() - t0
+
+    def cycle(batches):
+        while True:
+            yield from batches
+
+    def make(dtype, ckpt, nb_epochs):
+        torch.manual_seed(UNET_SEED)
+        return Trainer(
+            UNet(1, 1, rate=0.05, base=64, dtype=dtype), cycle(train_batches), TRAIN_STEPS,
+            cycle(val_batches), TRAIN_VAL_STEPS, TRAIN_LR, nb_epochs, ckpt, input_type="spec",
+            augmenter=fp, factor_sc=TP.FACTOR_SC, factor_mag=TP.FACTOR_MAG,
+            scheduler=ReduceLROnPlateau(factor=TP.FACTOR, patience=TP.PATIENCE),
+            early_stopping=EarlyStopping(patience=TP.EARLY_STOP, min_delta=TP.MIN_DELTA),
+            save=True, device=dev,
+        )
+
+    flops_forward = unet_forward_flops(
+        UNet(1, 1, base=64).to(dev).eval(), torch.zeros((1, 257, 1 + TRAIN_SAMPLES // 256), device=dev))
+    flops_step = 3 * flops_forward * TP.BATCH_SIZE  # forward + backward (two products)
+    runs = {}
+    for label, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        ckpt = os.path.join(ckpt_root, label)
+        trainer = make(dtype, ckpt, TRAIN_EPOCHS + 1)
+        times = []
+        step = trainer.train_step
+
+        def timed(*args, step=step, times=times):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            return out
+
+        trainer.train_step = timed
+        baseline_loss, baseline_metrics = trainer.validation_epoch()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        trainer.training_loop()
+        loop_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        del trainer.train_step
+        hist = trainer.history
+        median_s = float(np.median(times))
+        clean = torch.from_numpy(train_batches[0]).to(dev)
+        prof = profile_call(f"train_step, UNet base=64 {label}, batch {TP.BATCH_SIZE} x 3 s",
+                            lambda: trainer.train_step(clean))
+        emit(prof)
+        run = {
+            "steps": len(times), "step_ms_median": median_s * 1e3,
+            "step_ms_first": times[0] * 1e3, "step_ms_min": min(times) * 1e3,
+            "step_ms_max": max(times) * 1e3,
+            "examples_per_s": TP.BATCH_SIZE / median_s,
+            "tflop_per_s": flops_step / median_s / 1e12,
+            "busy_share": prof["busy_share"],
+            "cudnn_convolutions_share_of_device": prof["cudnn_convolutions_share_of_device"],
+            "peak_bytes": peak, "peak_bytes_above_start": peak - before,
+            "loop_seconds": loop_s,
+            "train_loss": [h["train"]["loss"] for h in hist],
+            "val_loss": [baseline_loss["loss"]] + [h["val"]["loss"] for h in hist],
+            "val_psnr": [baseline_metrics["psnr"]] + [h["metrics"]["psnr"] for h in hist],
+        }
+        runs[label] = run
+        losses = run["train_loss"] + run["val_loss"] + run["val_psnr"]
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"train {label}: a loss or PSNR is not finite: {losses}")
+        if not run["val_loss"][-1] < run["val_loss"][0]:
+            fail(f"train {label}: the validation loss did not fall: {run['val_loss']}")
+        if label == "float32":
+            meta_path = os.path.join(ckpt, "last_epoch", "trainer_meta.json")
+            with open(meta_path) as f:
+                meta = json.load(f)
+            del trainer, prof
+            torch.cuda.empty_cache()
+            resumed = make(None, ckpt, TRAIN_EPOCHS + 1)
+            start, step0 = resumed.epoch_start, resumed.step
+            resumed.training_loop()
+            run["resume"] = {
+                "meta_keys": sorted(meta), "saved_epoch": meta["epoch"], "epoch_start": start,
+                "step_at_resume": step0,
+                "epochs_after_resume": len(resumed.history),
+                "val_loss_after_resume": resumed.history[-1]["val"]["loss"] if resumed.history else None,
+            }
+            if sorted(meta) != ["best_val_loss", "early_stopping", "epoch", "scheduler"]:
+                fail(f"trainer_meta.json keys {sorted(meta)}")
+            if start != TRAIN_EPOCHS or len(resumed.history) != 1 or step0 != TRAIN_EPOCHS * TRAIN_STEPS:
+                fail(f"resume from last_epoch: {run['resume']}")
+            if not math.isfinite(run["resume"]["val_loss_after_resume"]):
+                fail("the resumed epoch's validation loss is not finite")
+            del resumed
+        else:
+            del trainer, prof
+        torch.cuda.empty_cache()
+    line = {
+        "phase": "train", "model": "UNet(1, 1, rate=0.05, base=64)", "batch": TP.BATCH_SIZE,
+        "samples": TRAIN_SAMPLES, "spectrogram": [257, 1 + TRAIN_SAMPLES // 256],
+        "augmentation": "default_parameters, dcase_shaped_banks()", "lr": TRAIN_LR,
+        "epochs": TRAIN_EPOCHS, "steps_per_epoch": TRAIN_STEPS, "val_steps": TRAIN_VAL_STEPS,
+        "flops_forward_one": flops_forward, "flops_step": flops_step,
+        "host_batches_seconds": data_s, "runs": runs,
+    }
+    emit(line)
+    return os.path.join(ckpt_root, "float32", "best_epoch", "state.pt")
+
+
+def trained_denoiser_phase(dev, ckpt_path, ht, dm, analyzer, queries, aug_default, q_names,
+                           q_paths, cleans_dir) -> dict:
+    """The denoised and peak-metric runs of phases 11 and 12 with the strict
+    float32 checkpoint of the train phase in place of the identity weights, in
+    strict float32, with TF32 allowed and in bfloat16; how far the two
+    faster ones move verdicts, masks and the denoised F1."""
+    state = torch.load(ckpt_path, map_location=dev, weights_only=True)["model"]
+    strict = UNet(1, 1).to(dev)
+    strict.load_state_dict(state)
+    bf16 = UNet(1, 1, dtype=torch.bfloat16).to(dev)
+    bf16.load_state_dict(state)
+    strict_hook, bf16_hook = unet_denoiser(strict), unet_denoiser(bf16)
+
+    def tf32_hook(x):  # the same layers, TF32 allowed around them
+        with torch.inference_mode(), cudnn_tf32(True):
+            return strict.outc(strict.body(x[:, None]))[:, 0]
+
+    aug_batch = aug_default[:QUERY_BATCH]
+    out, verdicts, masks = {}, {}, {}
+    K.reset_launch_counts()
+    for label, hook in (("float32", strict_hook), ("tf32_allowed", tf32_hook), ("bfloat16", bf16_hook)):
+        den = AudfprintPeaks(afp_settings["audfprint"], denoising=True, denoising_model="unet",
+                             spec_denoiser=hook, device=dev)
+        masks[label] = P.find_peaks_batch(aug_batch, denoiser=hook)
+        verdicts[label] = dm.match_waveforms(aug_batch, shifts=SHIFTS, denoiser=hook)
+        torch.cuda.synchronize()
+        sets = {}
+        for name, qs in (("cleans", queries[:DENOISED_QUERIES]), ("default_parameters", list(aug_default))):
+            t0 = time.perf_counter()
+            acc = compute_accuracy_batched(qs, ht, analyzer, den, batch_size=QUERY_BATCH, shifts=SHIFTS,
+                                           device_matcher=dm, names=q_names, device=dev)
+            sets[name] = {"accuracy": acc, "queries_per_s": DENOISED_QUERIES / (time.perf_counter() - t0)}
+        t0 = time.perf_counter()
+        metrics = compute_peaks_metrics_batched(q_paths, analyzer, den, cleans_path=cleans_dir)
+        out[label] = {"sets": sets, "peaks_metrics": metrics,
+                      "peaks_metrics_queries_per_s": DENOISED_QUERIES / (time.perf_counter() - t0)}
+        if set(metrics) != set(PEAKS_METRICS) or not all(math.isfinite(v) for v in metrics.values()):
+            fail(f"trained denoiser {label}: peak metrics missing or not finite: {metrics}")
+        for name, row in sets.items():
+            if set(row["accuracy"]) != {"No Denoising", "With Denoising", "Mix Pipeline"}:
+                fail(f"trained denoiser {label} {name}: accuracies {sorted(row['accuracy'])}")
+    launches = dict(K.LAUNCHES)
+    for label in ("tf32_allowed", "bfloat16"):
+        out[label]["vs_float32"] = {
+            "verdicts_equal": sum(a[:2] == b[:2] for a, b in zip(verdicts[label], verdicts["float32"]))
+            / len(verdicts["float32"]),
+            "mask_cells_equal": float((masks[label] == masks["float32"]).float().mean()),
+            "f1_den_diff": out[label]["peaks_metrics"]["f1_den"] - out["float32"]["peaks_metrics"]["f1_den"],
+        }
+    line = {"phase": "trained_denoiser", "checkpoint": "train phase, float32, best_epoch",
+            "queries": DENOISED_QUERIES, "shifts": SHIFTS, "mask_peaks_float32": int(masks["float32"].sum()),
+            "precisions": out, "launches": launches}
+    emit(line)
+    for k, n in launches.items():
+        if n <= 0:
+            fail(f"{k} kernel did not launch in the trained-denoiser runs")
+    return line
 
 
 def main() -> None:
@@ -861,19 +1207,20 @@ def main() -> None:
             fail(f"{k} kernel did not launch in the denoised accuracies")
 
     # ---- 12. peak metrics of the same degraded queries against their cleans
-    with tempfile.TemporaryDirectory() as tmp:
-        os.mkdir(os.path.join(tmp, "cleans"))
-        os.mkdir(os.path.join(tmp, "default_parameters"))
-        q_paths = []
-        for i in range(DENOISED_QUERIES):
-            np.save(os.path.join(tmp, "cleans", f"q{i:04d}.npy"), queries[i].cpu().numpy())
-            q_paths.append(os.path.join(tmp, "default_parameters", f"q{i:04d}.npy"))
-            np.save(q_paths[-1], aug_default[i].cpu().numpy())
-        K.reset_launch_counts()
-        t0 = time.perf_counter()
-        metrics = compute_peaks_metrics_batched(
-            q_paths, analyzer, analyzer_den, cleans_path=os.path.join(tmp, "cleans"))
-        metrics_s = time.perf_counter() - t0
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    os.mkdir(os.path.join(tmp, "cleans"))
+    os.mkdir(os.path.join(tmp, "default_parameters"))
+    q_paths = []
+    for i in range(DENOISED_QUERIES):
+        np.save(os.path.join(tmp, "cleans", f"q{i:04d}.npy"), queries[i].cpu().numpy())
+        q_paths.append(os.path.join(tmp, "default_parameters", f"q{i:04d}.npy"))
+        np.save(q_paths[-1], aug_default[i].cpu().numpy())
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = compute_peaks_metrics_batched(
+        q_paths, analyzer, analyzer_den, cleans_path=os.path.join(tmp, "cleans"))
+    metrics_s = time.perf_counter() - t0
     launches_metrics = dict(K.LAUNCHES)
     emit({"phase": "peaks_metrics", "queries": DENOISED_QUERIES, "metrics": metrics,
           "seconds": metrics_s, "queries_per_s": DENOISED_QUERIES / metrics_s,
@@ -891,6 +1238,21 @@ def main() -> None:
     # ---- 9 again: where the time of a denoised match batch goes
     emit(profile_call("match_waveforms with the UNet, 128 queries, 4 shifts",
                       lambda: dm.match_waveforms(aug_batch, shifts=SHIFTS, denoiser=hook)))
+    del hook, analyzer_den, masks_plain, masks_den
+    torch.cuda.empty_cache()
+
+    # ---- 13-15. training: one step card against CPU, the published UNet
+    # trained in two precisions with a resume, then the trained checkpoint
+    # as the denoiser of phases 11 and 12
+    train_step_check(dev)
+    ckpt_dir = tempfile.TemporaryDirectory()
+    ckpt_path = train_phase(dev, noise_bank, ir_bank, ckpt_dir.name)
+    trained = trained_denoiser_phase(
+        dev, ckpt_path, ht, dm, analyzer, queries, aug_default, den_names, q_paths,
+        os.path.join(tmp, "cleans"))
+    launches_trained = trained["launches"]
+    ckpt_dir.cleanup()
+    tmp_dir.cleanup()
 
     kernels = []
     for kname, line in (("forward_prune", 60), ("backward_prune", 113)):
@@ -900,12 +1262,13 @@ def main() -> None:
             "source": "musicfpaugment_torch/csrc/peaks_prune.cu",
             "replaces": f"musicfpaugment_tpu/afp/audfprint/peaks_pallas.py:{line}",
             "launches": launches[kname] + launches_conditions[kname]
-            + launches_denoised[kname] + launches_metrics[kname],
+            + launches_denoised[kname] + launches_metrics[kname] + launches_trained[kname],
             "launches_ingest": launches_ingest[kname],
             "launches_match": launches_match[kname],
             "launches_conditions": launches_conditions[kname],
             "launches_denoised": launches_denoised[kname],
             "launches_peaks_metrics": launches_metrics[kname],
+            "launches_trained_denoiser": launches_trained[kname],
             "max_abs_err": max(q["max_abs_err"], i["max_abs_err"], st["max_abs_err"]),
             "ms": st["kernel_ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],

@@ -7,13 +7,14 @@ table's numpy arrays (the fields of its npz file),
 JAX ``NoiseBank`` / ``IRBank`` as numpy arrays, and
 :func:`unet_state_dict_from_flax` the Flax UNet's ``params`` and
 ``batch_stats`` as nested dicts of numpy arrays, all without importing the
-JAX package. :func:`unet_denoiser` makes of a :class:`UNet` the spectrogram
+JAX package; :func:`unet_state_dict_to_flax` carries a UNet trained here
+back the other way. :func:`unet_denoiser` makes of a :class:`UNet` the spectrogram
 hook that the analyzer and the matcher take.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Sequence
+from typing import Callable, Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -111,6 +112,20 @@ def _double_conv_leaves(flax_prefix: str, torch_prefix: str):
         yield f"{flax_prefix}BatchNorm_{i}/var", "batch_stats", f"{bn}.running_var", None
 
 
+def _unet_leaf_table(bilinear: bool):
+    """(flax leaf, collection, state_dict key, layout) of every UNet leaf."""
+    table = list(_double_conv_leaves("DoubleConv_0/", "inc."))
+    for i in range(4):
+        table += _double_conv_leaves(f"Down_{i}/DoubleConv_0/", f"down{i + 1}.conv.")
+        table += _double_conv_leaves(f"Up_{i}/DoubleConv_0/", f"up{i + 1}.conv.")
+        if not bilinear:
+            table.append((f"Up_{i}/ConvTranspose_0/kernel", "params", f"up{i + 1}.up.weight", "convT"))
+            table.append((f"Up_{i}/ConvTranspose_0/bias", "params", f"up{i + 1}.up.bias", None))
+    table.append(("Conv_0/kernel", "params", "outc.weight", "conv"))
+    table.append(("Conv_0/bias", "params", "outc.bias", None))
+    return table
+
+
 def unet_state_dict_from_flax(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` of the port's :class:`UNet` from the Flax UNet's
     ``params`` and ``batch_stats`` (nested dicts of numpy arrays, as
@@ -142,18 +157,8 @@ def unet_state_dict_from_flax(params: Mapping, batch_stats: Mapping) -> Dict[str
                      base=int(first.shape[3]))
     want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
 
-    table = list(_double_conv_leaves("DoubleConv_0/", "inc."))
-    for i in range(4):
-        table += _double_conv_leaves(f"Down_{i}/DoubleConv_0/", f"down{i + 1}.conv.")
-        table += _double_conv_leaves(f"Up_{i}/DoubleConv_0/", f"up{i + 1}.conv.")
-        if not bilinear:
-            table.append((f"Up_{i}/ConvTranspose_0/kernel", "params", f"up{i + 1}.up.weight", "convT"))
-            table.append((f"Up_{i}/ConvTranspose_0/bias", "params", f"up{i + 1}.up.bias", None))
-    table.append(("Conv_0/kernel", "params", "outc.weight", "conv"))
-    table.append(("Conv_0/bias", "params", "outc.bias", None))
-
     state = {}
-    for leaf, collection, key, layout in table:
+    for leaf, collection, key, layout in _unet_leaf_table(bilinear):
         if leaf not in leaves[collection]:
             raise ValueError(f"Flax UNet {collection} lack the leaf {leaf}")
         a = np.asarray(leaves[collection].pop(leaf), np.float32)
@@ -176,6 +181,36 @@ def unet_state_dict_from_flax(params: Mapping, batch_stats: Mapping) -> Dict[str
         if key.endswith("num_batches_tracked"):
             state[key] = torch.zeros((), dtype=torch.long)
     return state
+
+
+def unet_state_dict_to_flax(state_dict: Mapping) -> Tuple[Dict, Dict]:
+    """The inverse of :func:`unet_state_dict_from_flax`: the Flax UNet's
+    ``(params, batch_stats)`` as nested dicts of numpy float32 arrays from
+    the ``state_dict`` of the port's :class:`UNet`, so that a model trained
+    here runs in the JAX package (``{"params": ..., "batch_stats": ...}``).
+    Conv kernels go back to (kh, kw, in, out) and the transposed-conv
+    kernels are flipped back. ``num_batches_tracked`` has no Flax leaf and
+    is dropped; any other key the table does not name raises
+    ``ValueError``."""
+    state = {k: v for k, v in state_dict.items() if not k.endswith("num_batches_tracked")}
+    bilinear = "up1.up.weight" not in state
+    trees: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    for leaf, collection, key, layout in _unet_leaf_table(bilinear):
+        if key not in state:
+            raise ValueError(f"the UNet state_dict lacks {key}")
+        a = state.pop(key).detach().to("cpu", torch.float32).numpy()
+        if layout == "conv":
+            a = a.transpose(2, 3, 1, 0)
+        elif layout == "convT":
+            a = a.transpose(2, 3, 0, 1)[::-1, ::-1]
+        node = trees[collection]
+        *parents, name = leaf.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = np.array(a, np.float32, order="C")
+    if state:
+        raise ValueError(f"state_dict keys the Flax UNet has no leaf for: {sorted(state)}")
+    return trees["params"], trees["batch_stats"]
 
 
 def unet_denoiser(model: UNet) -> Callable[[torch.Tensor], torch.Tensor]:

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from musicfpaugment_torch.core.convolve import fft_convolve
+from musicfpaugment_torch.device import cudnn_tf32
 
 DEFAULT_ZEROS = 8.0
 DEFAULT_HALF_SIZE_MAX = 4096
@@ -69,8 +70,9 @@ def _edge_pad(samples: torch.Tensor, pad: int) -> torch.Tensor:
 
 def _direct_conv_valid(padded: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
     """'valid' convolution with a per-example kernel as one grouped
-    ``conv1d`` (groups = batch), in full float32: TF32 is switched off around
-    the call, since cuDNN convolutions may use it by default.
+    ``conv1d`` (groups = batch), in full float32: cuDNN stays on and TF32 is
+    switched off around the call, since cuDNN convolutions may use it by
+    default.
 
     padded: (B, Tp) or (B, C, Tp); kernels: (B, n). Returns (..., Tp - n + 1).
     """
@@ -83,7 +85,7 @@ def _direct_conv_valid(padded: torch.Tensor, kernels: torch.Tensor) -> torch.Ten
         x = padded.reshape(1, b * c, tp)
         k = k.repeat_interleave(c, dim=0)  # (B*C, 1, n)
         groups = b * c
-    with torch.backends.cudnn.flags(allow_tf32=False):
+    with cudnn_tf32(False):
         y = F.conv1d(x, k, groups=groups)
     return y[0] if padded.ndim == 2 else y.reshape(padded.shape[:-1] + (-1,))
 

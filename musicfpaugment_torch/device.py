@@ -1,4 +1,5 @@
-"""Device selection for the port's entry points.
+"""Device selection for the port's entry points, and the cuDNN precision
+switch.
 
 Entry points run on the card unless the caller asks for the CPU: ``None``
 means ``"cuda"``, and asking for CUDA where there is none raises instead of
@@ -7,6 +8,7 @@ falling back.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -22,3 +24,17 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+@contextlib.contextmanager
+def cudnn_tf32(allow: bool):
+    """cuDNN convolutions with TF32 allowed or not inside the block (cuDNN
+    allows it by default); the other cuDNN flags stay as they are.
+    ``torch.backends.cudnn.flags(allow_tf32=...)`` alone would also switch
+    cuDNN off: its ``enabled`` defaults to ``False``."""
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(
+        enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+        deterministic=cudnn.deterministic, allow_tf32=allow,
+    ):
+        yield

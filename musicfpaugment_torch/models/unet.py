@@ -14,12 +14,15 @@ JAX model's are XLA convolutions, it reaches no Pallas kernel.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from musicfpaugment_torch.device import cudnn_tf32
+
+__all__ = ["FlaxBatchNorm2d", "DoubleConv", "Down", "Up", "UNet", "cudnn_tf32"]
 
 
 class FlaxBatchNorm2d(nn.BatchNorm2d):
@@ -93,18 +96,6 @@ class Up(nn.Module):
         diff_w = x2.shape[3] - x1.shape[3]
         x1 = F.pad(x1, (diff_w // 2, diff_w - diff_w // 2, diff_h // 2, diff_h - diff_h // 2))
         return self.conv(torch.cat([x2, x1], dim=1))
-
-
-@contextlib.contextmanager
-def cudnn_tf32(allow: bool):
-    """cuDNN convolutions with TF32 allowed or not inside the block (cuDNN
-    allows it by default); the other cuDNN flags stay as they are."""
-    cudnn = torch.backends.cudnn
-    with cudnn.flags(
-        enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-        deterministic=cudnn.deterministic, allow_tf32=allow,
-    ):
-        yield
 
 
 class UNet(nn.Module):

@@ -1,5 +1,6 @@
 """The port on the card: its CUDA kernels against their plain PyTorch
-versions, and the UNet, the denoiser hook and the metrics against the CPU.
+versions, and the UNet, the denoiser hook, the metrics and a training step
+against the CPU.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 neither JAX nor the JAX package, so it also runs where JAX is not installed:
@@ -323,3 +324,95 @@ def test_metrics_on_card_tensors_match_cpu(cuda_device, tolerance):
     assert tmetrics.Recall(tolerance)(torch.from_numpy(pred[:1]).to(cuda_device),
                                       torch.from_numpy(gt[:1]).to(cuda_device)) == pytest.approx(
         tmetrics.Recall(tolerance)(pred[:1], gt[:1]), abs=1e-6)
+
+
+def _step_trainer(device, tmp_path, dtype=None, train_iter=(), save=False, nb_epochs=2):
+    from musicfpaugment_torch.train.trainer import Trainer
+
+    torch.manual_seed(5)
+    return Trainer(UNet(1, 1, rate=0.0, base=8, dtype=dtype), iter(train_iter), 1,
+                   iter(train_iter), 1, 1e-3, nb_epochs, str(tmp_path), input_type="spec",
+                   save=save, device=device)
+
+
+def _step_batch():
+    clean = next(synthetic_clean_batches(8, 24000, seed=67, sample_rate=8000))
+    aug = (0.7 * clean + 0.2 * np.random.default_rng(67).standard_normal(clean.shape)).astype(np.float32)
+    return clean, aug
+
+
+@pytest.mark.cuda
+@pytest.mark.filterwarnings("ignore:Full backward hook is firing")
+def test_train_step_on_card_matches_cpu(cuda_device, tmp_path):
+    """One "spec" step, card against CPU from the same weights and batch.
+    Strict float32: loss within 1e-5 (relative), running statistics within
+    1e-5 of their largest values, every backward convolution with cuDNN on
+    and TF32 off. Gradients within 1e-4 of each tensor's largest value in
+    float64: in float32 they jump where rounding flips a ReLU or a max-pool
+    choice (up to 8e-2 between two float32 runs of this model). A bfloat16
+    step is finite and its loss within 5e-2 of the float32 one."""
+    clean, aug = _step_batch()
+    runs, flags, convs = {}, [], []
+    for label, device, dtype, body in (
+            ("cpu", "cpu", torch.float32, None), ("card", cuda_device, torch.float32, None),
+            ("cpu64", "cpu", torch.float64, None), ("card64", cuda_device, torch.float64, None),
+            ("bf16", cuda_device, torch.float32, torch.bfloat16)):
+        trainer = _step_trainer(device, tmp_path / label, body)
+        trainer.model.to(dtype)
+        if label == "card":
+            for m in trainer.model.modules():
+                if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                    convs.append(m)
+                    m.register_full_backward_hook(lambda *_: flags.append(
+                        (torch.backends.cudnn.enabled, torch.backends.cudnn.allow_tf32)))
+        terms = trainer.train_step(torch.from_numpy(clean).to(device, dtype),
+                                   torch.from_numpy(aug).to(device, dtype))
+        runs[label] = (float(terms["loss"]),
+                       {k: p.grad.cpu() for k, p in trainer.model.named_parameters()},
+                       {k: v.cpu() for k, v in trainer.model.state_dict().items() if "running_" in k})
+    (loss_c, _, stats_c), (loss_g, _, stats_g) = runs["cpu"], runs["card"]
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+    for k, want in stats_c.items():
+        assert float((stats_g[k] - want).abs().max()) <= 1e-5 * float(want.abs().max()), k
+    assert len(flags) == len(convs) == 23 and set(flags) == {(True, False)}
+    grads_c64, grads_g64 = runs["cpu64"][1], runs["card64"][1]
+    for k, want in grads_c64.items():
+        assert float((grads_g64[k] - want).abs().max()) <= 1e-4 * float(want.abs().max()), k
+    loss_b, grads_b, _ = runs["bf16"]
+    assert np.isfinite(loss_b) and all(bool(torch.isfinite(g).all()) for g in grads_b.values())
+    assert abs(loss_b - loss_c) <= 5e-2 * abs(loss_c)
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cudnn.enabled
+
+
+@pytest.mark.cuda
+def test_save_and_resume_on_card(cuda_device, tmp_path):
+    import json
+
+    from musicfpaugment_torch.augment import AugmentFP, synthetic_banks
+
+    batches = [next(synthetic_clean_batches(4, 8000, seed=70 + i, sample_rate=8000)) for i in range(4)]
+    noise_bank, ir_bank = synthetic_banks(8000, num_noise=4, num_irs=2, noise_row_length=8000,
+                                          device=cuda_device)
+    fp = AugmentFP(noise_bank, 8000, impulse_response_dir=ir_bank, device=cuda_device)
+
+    def make(nb_epochs, train_iter):
+        from musicfpaugment_torch.train.trainer import Trainer
+
+        torch.manual_seed(5)
+        return Trainer(UNet(1, 1, rate=0.0, base=8), train_iter, 2, iter(batches * 4), 1, 1e-3,
+                       nb_epochs, str(tmp_path / "ckpt"), input_type="spec", augmenter=fp,
+                       save=True, device=cuda_device)
+
+    train_iter = iter(batches * 4)
+    first = make(2, train_iter)
+    first.training_loop()
+    meta = json.loads((tmp_path / "ckpt" / "last_epoch" / "trainer_meta.json").read_text())
+    assert set(meta) == {"epoch", "best_val_loss", "scheduler", "early_stopping"}
+    resumed = make(2, train_iter)
+    assert resumed.epoch_start == 1 and resumed.step == 2
+    assert resumed.scheduler.state_dict() == first.scheduler.state_dict()
+    for k, v in first.model.state_dict().items():
+        assert torch.equal(resumed.model.state_dict()[k], v), k
+    assert next(resumed.model.parameters()).is_cuda
+    resumed.training_loop()
+    assert resumed.step == 4 and np.isfinite(resumed.history[-1]["val"]["loss"])

@@ -148,3 +148,23 @@ def test_colored_noise_statistics(f_decay):
     one = tnoise.gen_colored_noise(
         torch.Generator().manual_seed(3), f_decay, 500, SR, device="cpu")
     assert one.shape == (500,) and torch.equal(one, noise[0, :500])
+
+
+def test_direct_route_keeps_cudnn_on_with_tf32_off(monkeypatch):
+    """The direct grouped convolution runs with cuDNN enabled and TF32 off,
+    and the flags are as they were after it (``cudnn.flags(allow_tf32=...)``
+    alone would switch cuDNN off)."""
+    seen = []
+    conv1d = tfilt.F.conv1d
+
+    def spy(*args, **kwargs):
+        seen.append((torch.backends.cudnn.enabled, torch.backends.cudnn.allow_tf32))
+        return conv1d(*args, **kwargs)
+
+    monkeypatch.setattr(tfilt.F, "conv1d", spy)
+    before = (torch.backends.cudnn.enabled, torch.backends.cudnn.allow_tf32)
+    assert before == (True, True)  # PyTorch's defaults
+    x = torch.from_numpy(music(2, 4000))
+    tfilt.lowpass_filter(x, torch.tensor([0.1, 0.3]), half_size_max=16)
+    assert seen == [(True, False)]
+    assert (torch.backends.cudnn.enabled, torch.backends.cudnn.allow_tf32) == before

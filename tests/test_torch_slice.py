@@ -142,11 +142,15 @@ def _imports(path):
 
 
 def test_port_imports_no_jax_or_jax_package():
-    banned = {"jax", "jaxlib", "flax", "optax", "musicfpaugment_tpu"}
+    banned = {"jax", "jaxlib", "flax", "optax", "orbax", "musicfpaugment_tpu"}
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, filenames in os.walk(os.path.join(ROOT, "musicfpaugment_torch")):
         paths += [os.path.join(dirpath, f) for f in filenames if f.endswith(".py")]
     assert len(paths) > 10
+    scanned = {os.path.relpath(p, ROOT) for p in paths}
+    for module in ("train/losses", "train/parameters", "train/utils", "train/trainer",
+                   "train/train", "data/dataset", "data/dcase", "data/jamendo"):
+        assert f"musicfpaugment_torch/{module}.py" in scanned, module
     for path in paths:
         for mod in _imports(path):
             assert mod.split(".")[0] not in banned, (path, mod)
