@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Drives the audfprint identification path of ``musicfpaugment_torch`` end to
-end on the card, clean and degraded queries, and the training of its UNet
-denoiser, through the entry points a user calls:
+end on the card, clean and degraded queries, its two denoisers (the UNet on
+spectrograms, Demucs on waveforms) and their training, through the entry
+points a user calls:
 
 1. device  - the card's name and power limit;
 2. build   - compiles the CUDA kernels from ``musicfpaugment_torch/csrc``;
@@ -81,14 +82,39 @@ denoiser, through the entry points a user calls:
              checkpoint as the denoiser, in strict float32, with TF32 allowed
              and in bfloat16: the three accuracies, queries/s, the peak
              metrics, and how far the two faster ones move verdicts, peak
-             masks and the denoised F1.
+             masks and the denoised F1;
+16. demucs - the published ``Demucs()`` (hidden 48, depth 5, x4 resampling,
+             causal LSTM of width 768) with seeded weights (the port's
+             initialisation, then ``rescale_params(0.1)``): its parameter
+             and FLOP counts and a forward of 128 degraded 8 s queries in
+             strict float32, with TF32 allowed and in bfloat16 (ms, TFLOP/s,
+             peak memory, how far the two faster ones move the output); the
+             cumulative stage times by ``stop_at``; the card against the CPU
+             on 2 clips (1e-4 of the largest output); its cuDNN LSTM against
+             float64 on the same operands with TF32 off and allowed; the sinc
+             pair's two convolution routes at the forward's lengths;
+17. demucs_denoised - phase 11 with ``demucs_denoiser`` as the second
+             analyzer's waveform hook: the three accuracies over 2 x 256
+             queries and queries/s; the denoised arm alone, its verdicts equal
+             to the plain matcher's on batches denoised beforehand and the
+             hook called once per batch; the eight peak metrics (finite);
+             then one such match batch under torch.profiler;
+18. demucs_train_step_check - one "audio" step of ``Demucs(hidden=8,
+             depth=3)`` card against CPU: loss terms 1e-5 (relative), float64
+             gradients 1e-4;
+19. demucs_train - the published Demucs trained as phase 14 (lr 5e-4, the
+             "audio" losses) in strict float32 and in bfloat16;
+20. demucs_denoised again with the float32 run's best checkpoint;
+21. streamer - ``DemucsStreamer`` over the seeded Demucs, 10 s at 8 kHz
+             frame by frame: delta to the offline forward under 5%, initial
+             lag, time per frame, real-time factor under 1.
 
 Every phase prints a JSON line. Launch counters are zeroed just before
 ingest and read after match: both kernels must have launched in each (once
 per ingest batch, once per match batch whatever the number of shifts). They
 are zeroed again before the augmented conditions, before the denoised
-accuracies, before the peak metrics and before the trained-denoiser runs,
-and read after each.
+accuracies, before the peak metrics, before the trained-denoiser runs and
+before each Demucs-denoised run, and read after each.
 The line before the last is the kernel table, the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
 
@@ -101,7 +127,9 @@ readings at the other two shapes.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import functools
 import json
 import math
 import os
@@ -124,12 +152,15 @@ from musicfpaugment_torch.afp.audfprint.analyzer import (
 )
 from musicfpaugment_torch.augment import AugmentFP, dcase_shaped_banks
 from musicfpaugment_torch.augment import transforms as T
-from musicfpaugment_torch.convert import unet_denoiser
+from musicfpaugment_torch.convert import demucs_denoiser, unet_denoiser
 from musicfpaugment_torch.core import filters
+from musicfpaugment_torch.core import resample as RS
 from musicfpaugment_torch.core.convolve import fft_convolve
 from musicfpaugment_torch.data.synthetic import synth_tracks_device, synthetic_clean_batches
 from musicfpaugment_torch.device import cudnn_tf32
-from musicfpaugment_torch.models import UNet
+from musicfpaugment_torch.models import Demucs, UNet, rescale_params
+from musicfpaugment_torch.models.demucs import STOP_AT
+from musicfpaugment_torch.models.streamer import DemucsStreamer
 from musicfpaugment_torch.testing.audfprint_exps import (
     PEAKS_METRICS,
     compute_accuracy_batched,
@@ -142,6 +173,7 @@ from musicfpaugment_torch.testing.parameters import (
 )
 from musicfpaugment_torch.train import parameters as TP
 from musicfpaugment_torch.train.trainer import EarlyStopping, ReduceLROnPlateau, Trainer
+from musicfpaugment_torch.utils import StageTimer
 
 SR = 8000
 N_TRACKS = 10_000
@@ -186,6 +218,18 @@ MAX_STEP_LOSS_REL = 1e-5
 MAX_STEP_GRAD_REL = 1e-4
 MAX_STEP_STATS_REL = 1e-5
 MAX_CONV_BACKWARD_REL = 1e-4
+
+# Demucs: the published model with the port's own seeded initialisation
+DEMUCS_SEED = 48
+DEMUCS_BATCH = 128
+DEMUCS_CPU_EXAMPLES = 2
+# relative to the largest output: float32 rounding through the 10
+# convolution stages and 2 x 249 LSTM steps reads ~1e-6, TF32 ~1e-3
+MAX_DEMUCS_CARD_VS_CPU = 1e-4
+MAX_LSTM_STRICT_REL = 1e-4
+DEMUCS_TRAIN_LR = 5e-4  # the JAX CLI's for Demucs
+STREAM_SECONDS = 10
+MAX_STREAM_DELTA = 0.05  # the JAX package's own limit
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32 outside the
 # tensor cores
@@ -609,6 +653,7 @@ def profile_call(label: str, fn) -> dict:
         _device_us(e) for e in host_ops
         if e.key in ("aten::cudnn_convolution", "aten::cudnn_convolution_transpose")
     ) / 1e3
+    lstm_ms = sum(_device_us(e) for e in host_ops if e.key == "aten::_cudnn_rnn") / 1e3
     return {
         "phase": "profile", "call": label, "wall_ms": wall_ms,
         "traced_wall_ms": traced_ms, "device_ms": device_ms,
@@ -617,6 +662,7 @@ def profile_call(label: str, fn) -> dict:
         "prune_kernels_share_of_device": prune_ms / device_ms,
         "cudnn_convolutions_device_ms": conv_ms,
         "cudnn_convolutions_share_of_device": conv_ms / device_ms,
+        "cudnn_lstm_device_ms": lstm_ms, "cudnn_lstm_share_of_device": lstm_ms / device_ms,
         "top_ops": top(host_ops), "top_kernels": top(on_card),
     }
 
@@ -729,6 +775,75 @@ def train_step_check(dev) -> dict:
     return line
 
 
+@functools.lru_cache(maxsize=None)
+def training_batches():
+    """(train, validation) lists of clean (128, 3 s) batches and the seconds
+    they took to make on the host (made once, for both models)."""
+    t0 = time.perf_counter()
+    train = [b for b, _ in zip(synthetic_clean_batches(TP.BATCH_SIZE, TRAIN_SAMPLES, SR, seed=59),
+                               range(TRAIN_STEPS))]
+    val = [b for b, _ in zip(synthetic_clean_batches(TP.BATCH_SIZE, TRAIN_SAMPLES, SR, seed=4),
+                             range(TRAIN_VAL_STEPS))]
+    return train, val, time.perf_counter() - t0
+
+
+def cycle(batches):
+    while True:
+        yield from batches
+
+
+def run_training(trainer: Trainer, clean: torch.Tensor, flops_step: float, label: str):
+    """Baseline validation, ``trainer.training_loop()`` with every step
+    timed, then one step under the profiler: step ms, examples/s, TFLOP/s,
+    peak memory, busy share and the loss curve, which must be finite and
+    whose validation loss must fall. Returns (run, profile)."""
+    times = []
+    step = trainer.train_step
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return out
+
+    trainer.train_step = timed
+    baseline_loss, baseline_metrics = trainer.validation_epoch()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    trainer.training_loop()
+    loop_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    del trainer.train_step
+    hist = trainer.history
+    median_s = float(np.median(times))
+    prof = profile_call(label, lambda: trainer.train_step(clean))
+    emit(prof)
+    batch = clean.shape[0]
+    run = {
+        "steps": len(times), "step_ms_median": median_s * 1e3,
+        "step_ms_first": times[0] * 1e3, "step_ms_min": min(times) * 1e3,
+        "step_ms_max": max(times) * 1e3,
+        "examples_per_s": batch / median_s,
+        "tflop_per_s": flops_step / median_s / 1e12,
+        "busy_share": prof["busy_share"],
+        "cudnn_convolutions_share_of_device": prof["cudnn_convolutions_share_of_device"],
+        "peak_bytes": peak, "peak_bytes_above_start": peak - before,
+        "loop_seconds": loop_s,
+        "train_loss": [h["train"]["loss"] for h in hist],
+        "val_loss": [baseline_loss["loss"]] + [h["val"]["loss"] for h in hist],
+        "val_psnr": [baseline_metrics["psnr"]] + [h["metrics"]["psnr"] for h in hist],
+    }
+    losses = run["train_loss"] + run["val_loss"] + run["val_psnr"]
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{label}: a loss or PSNR is not finite: {losses}")
+    if not run["val_loss"][-1] < run["val_loss"][0]:
+        fail(f"{label}: the validation loss did not fall: {run['val_loss']}")
+    return run, prof
+
+
 def train_phase(dev, noise_bank, ir_bank, ckpt_root: str) -> str:
     """The published UNet (base=64, rate 0.05) trained on the card with
     default_parameters augmentation inside each step, once in strict float32
@@ -738,16 +853,7 @@ def train_phase(dev, noise_bank, ir_bank, ckpt_root: str) -> str:
     float32 run's best checkpoint path."""
     params = test_pipelines_parameters["default_parameters"]
     fp = AugmentFP(noise_bank, SR, parameters=params, impulse_response_dir=ir_bank, device=dev)
-    t0 = time.perf_counter()
-    train_batches = [b for b, _ in zip(synthetic_clean_batches(TP.BATCH_SIZE, TRAIN_SAMPLES, SR, seed=59),
-                                       range(TRAIN_STEPS))]
-    val_batches = [b for b, _ in zip(synthetic_clean_batches(TP.BATCH_SIZE, TRAIN_SAMPLES, SR, seed=4),
-                                     range(TRAIN_VAL_STEPS))]
-    data_s = time.perf_counter() - t0
-
-    def cycle(batches):
-        while True:
-            yield from batches
+    train_batches, val_batches, data_s = training_batches()
 
     def make(dtype, ckpt, nb_epochs):
         torch.manual_seed(UNET_SEED)
@@ -767,52 +873,9 @@ def train_phase(dev, noise_bank, ir_bank, ckpt_root: str) -> str:
     for label, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
         ckpt = os.path.join(ckpt_root, label)
         trainer = make(dtype, ckpt, TRAIN_EPOCHS + 1)
-        times = []
-        step = trainer.train_step
-
-        def timed(*args, step=step, times=times):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = step(*args)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t)
-            return out
-
-        trainer.train_step = timed
-        baseline_loss, baseline_metrics = trainer.validation_epoch()
-        torch.cuda.reset_peak_memory_stats()
-        before = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        trainer.training_loop()
-        loop_s = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
-        del trainer.train_step
-        hist = trainer.history
-        median_s = float(np.median(times))
-        clean = torch.from_numpy(train_batches[0]).to(dev)
-        prof = profile_call(f"train_step, UNet base=64 {label}, batch {TP.BATCH_SIZE} x 3 s",
-                            lambda: trainer.train_step(clean))
-        emit(prof)
-        run = {
-            "steps": len(times), "step_ms_median": median_s * 1e3,
-            "step_ms_first": times[0] * 1e3, "step_ms_min": min(times) * 1e3,
-            "step_ms_max": max(times) * 1e3,
-            "examples_per_s": TP.BATCH_SIZE / median_s,
-            "tflop_per_s": flops_step / median_s / 1e12,
-            "busy_share": prof["busy_share"],
-            "cudnn_convolutions_share_of_device": prof["cudnn_convolutions_share_of_device"],
-            "peak_bytes": peak, "peak_bytes_above_start": peak - before,
-            "loop_seconds": loop_s,
-            "train_loss": [h["train"]["loss"] for h in hist],
-            "val_loss": [baseline_loss["loss"]] + [h["val"]["loss"] for h in hist],
-            "val_psnr": [baseline_metrics["psnr"]] + [h["metrics"]["psnr"] for h in hist],
-        }
+        run, prof = run_training(trainer, torch.from_numpy(train_batches[0]).to(dev), flops_step,
+                                 f"train_step, UNet base=64 {label}, batch {TP.BATCH_SIZE} x 3 s")
         runs[label] = run
-        losses = run["train_loss"] + run["val_loss"] + run["val_psnr"]
-        if not all(math.isfinite(v) for v in losses):
-            fail(f"train {label}: a loss or PSNR is not finite: {losses}")
-        if not run["val_loss"][-1] < run["val_loss"][0]:
-            fail(f"train {label}: the validation loss did not fall: {run['val_loss']}")
         if label == "float32":
             meta_path = os.path.join(ckpt, "last_epoch", "trainer_meta.json")
             with open(meta_path) as f:
@@ -906,6 +969,380 @@ def trained_denoiser_phase(dev, ckpt_path, ht, dm, analyzer, queries, aug_defaul
     for k, n in launches.items():
         if n <= 0:
             fail(f"{k} kernel did not launch in the trained-denoiser runs")
+    return line
+
+# ------------------------------------------------------------------ Demucs
+
+
+def seeded_demucs(seed: int, **kwargs) -> Demucs:
+    """A Demucs on the CPU with the port's own initialisation under
+    ``torch.manual_seed(seed)`` and then the reference's rescale (what the
+    CLI gives a fresh model), in eval mode."""
+    torch.manual_seed(seed)
+    return rescale_params(Demucs(**kwargs), reference=0.1).eval()
+
+
+def demucs_forward_flops(model: Demucs, x: torch.Tensor) -> dict:
+    """Multiply-adds x 2 of one forward of ``x`` by part: the encoder's and
+    the decoder's convolutions from the shapes they saw, the LSTM's gate
+    products (4 gates x (input + hidden) per unit, step and direction, every
+    layer) with the linear layer after a bidirectional one. The sinc
+    resampling (112 taps a sample) and the element-wise layers are not
+    counted."""
+    parts = {"encoder": 0, "decoder": 0, "lstm": 0}
+
+    def conv(part):
+        def count(mod, args, out):
+            k = mod.kernel_size[0]
+            if isinstance(mod, torch.nn.ConvTranspose1d):
+                parts[part] += 2 * args[0].numel() * mod.out_channels * k
+            else:
+                parts[part] += 2 * out.numel() * mod.in_channels * k
+        return count
+
+    def lstm(mod, args, out):
+        b, t = args[0].shape[:2]
+        dirs = 2 if mod.bidirectional else 1
+        for layer in range(mod.num_layers):
+            width = mod.input_size if layer == 0 else dirs * mod.hidden_size
+            parts["lstm"] += 2 * b * t * dirs * 4 * mod.hidden_size * (width + mod.hidden_size)
+
+    def linear(mod, args, out):
+        parts["lstm"] += 2 * out.numel() * mod.in_features
+
+    hooks = [model.lstm.lstm.register_forward_hook(lstm)]
+    if model.lstm.linear is not None:
+        hooks.append(model.lstm.linear.register_forward_hook(linear))
+    for part, stack in (("encoder", model.encoder), ("decoder", model.decoder)):
+        hooks += [m.register_forward_hook(conv(part)) for m in stack.modules()
+                  if isinstance(m, (torch.nn.Conv1d, torch.nn.ConvTranspose1d))]
+    with torch.inference_mode():
+        model(x)
+    for h in hooks:
+        h.remove()
+    parts["total"] = sum(parts.values())
+    return parts
+
+
+def resample_routes(dev, lengths) -> dict:
+    """The x2 sinc pair's 112-tap one-channel correlation at the lengths a
+    Demucs forward of DEMUCS_BATCH 8 s queries gives it, by the two routes:
+    ``core/convolve.fft_convolve`` as ``core/resample.py`` runs it, and
+    ``F.conv1d`` over (B, 1, T) (cuDNN, TF32 off): ms of each, errors
+    against float64; and the whole x4 up and down chains as the model runs
+    them."""
+    zeros = 56
+    kernel = torch.from_numpy(RS._kernel_updown2(zeros)).to(dev).view(1, 1, -1)
+    g = torch.Generator().manual_seed(7)
+    out = {}
+    for n in lengths:
+        x = torch.randn((DEMUCS_BATCH, n), generator=g).to(dev)
+
+        def by_fft(x=x):
+            return RS._conv1d_same_padded(x, zeros)
+
+        def by_conv1d(x=x):
+            with cudnn_tf32(False):
+                return torch.nn.functional.conv1d(x[:, None], kernel, padding=zeros)[:, 0]
+
+        exact = RS._conv1d_same_padded(x.double(), zeros)
+        out[f"{n}_samples"] = {
+            "fft_ms": gpu_ms(by_fft, 10), "conv1d_ms": gpu_ms(by_conv1d, 10),
+            "fft_err_vs_float64": float((by_fft() - exact).abs().max()),
+            "conv1d_err_vs_float64": float((by_conv1d() - exact).abs().max()),
+        }
+    x = torch.randn((DEMUCS_BATCH, 1, lengths[0]), generator=g).to(dev)
+    up = RS.upsample2(RS.upsample2(x))
+    out["up4_ms"] = gpu_ms(lambda: RS.upsample2(RS.upsample2(x)), 10)
+    out["down4_ms"] = gpu_ms(lambda: RS.downsample2(RS.downsample2(up)), 10)
+    return out
+
+
+def lstm_tf32_probe(model: Demucs, x: torch.Tensor) -> dict:
+    """The model's cuDNN LSTM on its own operands (the encoder's output for
+    ``x``) in float32 with TF32 off and allowed, each against a float64 copy
+    of the layer on the same operands, relative to the largest output:
+    ~1e-6 without TF32, ~1e-3 with it."""
+    lstm64 = copy.deepcopy(model.lstm.lstm).double()
+    with torch.inference_mode():
+        enc = model(x, stop_at="enc").transpose(1, 2).contiguous()
+        exact = lstm64(enc.double())[0]
+        out = {}
+        for label, allow in (("tf32_off", False), ("tf32_allowed", True)):
+            with cudnn_tf32(allow):
+                out[label] = _rel_max(model.lstm.lstm(enc)[0].double(), exact)
+    out["operands"] = list(enc.shape)
+    return out
+
+
+def demucs_phase(dev, queries: torch.Tensor) -> Demucs:
+    """Phase 16: the published Demucs with seeded weights on
+    ``queries`` (DEMUCS_BATCH, 8 s) of degraded audio. Returns the strict
+    float32 model on the card."""
+    on_cpu = seeded_demucs(DEMUCS_SEED)
+    strict = copy.deepcopy(on_cpu).to(dev)
+    bf16 = Demucs(dtype=torch.bfloat16).to(dev)
+    bf16.load_state_dict(strict.state_dict())
+    strict_hook, bf16_hook = demucs_denoiser(strict), demucs_denoiser(bf16)
+
+    def tf32_hook(x):  # the same layers, TF32 allowed around them
+        with torch.inference_mode(), cudnn_tf32(True):
+            return strict._forward(x, None)
+
+    flops = demucs_forward_flops(strict, queries[:1])
+    baseline = torch.cuda.memory_allocated()
+    runs = {}
+    for label, hook in (("float32", strict_hook), ("tf32_allowed", tf32_hook),
+                        ("bfloat16", bf16_hook)):
+        torch.cuda.reset_peak_memory_stats()
+        ms = gpu_ms(lambda: hook(queries), 3)
+        runs[label] = {
+            "ms": ms, "tflop_per_s": flops["total"] * queries.shape[0] / ms / 1e9,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "peak_bytes_above_start": torch.cuda.max_memory_allocated() - baseline,
+        }
+    few = queries[:8]
+    want = strict_hook(few)
+    top = float(want.abs().max())
+    for label, hook in (("tf32_allowed", tf32_hook), ("bfloat16", bf16_hook)):
+        runs[label]["max_err_vs_float32_rel"] = float((hook(few) - want).abs().max()) / top
+    timer = StageTimer(device=dev)  # cumulative prefixes, on the card's clock
+    with torch.inference_mode():
+        for stop in STOP_AT + (None,):
+            strict(queries, stop_at=stop)
+            for _ in range(3):
+                with timer.stage(stop or "output"):
+                    strict(queries, stop_at=stop)
+    t0 = time.perf_counter()
+    cpu_out = demucs_denoiser(on_cpu)(queries[:DEMUCS_CPU_EXAMPLES].cpu())
+    cpu_s = time.perf_counter() - t0
+    card_vs_cpu = _rel_max(want[:DEMUCS_CPU_EXAMPLES].cpu(), cpu_out)
+    length = strict.valid_length(queries.shape[-1])
+    line = {
+        "phase": "demucs", "model": "Demucs() hidden 48, depth 5, causal, x4", "seed": DEMUCS_SEED,
+        "parameters": sum(p.numel() for p in strict.parameters()),
+        "parameters_jax_layout": sum(p.numel() for n, p in strict.named_parameters()
+                                     if not n.startswith("lstm.lstm.bias_hh")),
+        "input": list(queries.shape), "flops_one_forward": flops,
+        "output_max_abs": top, "output_finite": bool(torch.isfinite(want).all()),
+        "forward": runs, "stages_cumulative_ms": {k: v["mean_ms"] for k, v in timer.summary().items()},
+        "card_vs_cpu_rel": card_vs_cpu, "card_vs_cpu_examples": DEMUCS_CPU_EXAMPLES,
+        "card_vs_cpu_reads": "largest |card - cpu| over the largest |cpu output|, strict float32",
+        "cpu_forward_s": cpu_s, "lstm_probe_vs_float64": lstm_tf32_probe(strict, queries[:16]),
+        "resample_routes": resample_routes(dev, [length, 2 * length]),
+    }
+    emit(line)
+    if not line["output_finite"] or want.shape != few.shape:
+        fail(f"the Demucs output is not finite or of shape {tuple(want.shape)}")
+    if not card_vs_cpu <= MAX_DEMUCS_CARD_VS_CPU:
+        fail(f"the Demucs on the card is {card_vs_cpu} of its largest output away from the CPU")
+    if not line["lstm_probe_vs_float64"]["tf32_off"] <= MAX_LSTM_STRICT_REL:
+        fail(f"the strict float32 cuDNN LSTM is {line['lstm_probe_vs_float64']} from float64")
+    return strict
+
+
+def demucs_denoised_phase(label, model, ht, dm, analyzer, queries, aug_default, q_names, q_paths,
+                          cleans_dir) -> dict:
+    """Phase 17 (and 20 with trained weights): ``compute_accuracy_batched``
+    with the plain analyzer and one denoising with ``demucs_denoiser(model)``
+    over the first 256 clean and ``default_parameters`` queries; the
+    denoised arm alone, whose verdicts must equal the plain matcher's on
+    batches denoised beforehand, the hook called once per batch; then
+    ``compute_peaks_metrics_batched``: eight finite numbers. Prune launches
+    counted from just before the accuracies to just after the metrics."""
+    hook = demucs_denoiser(model)
+    calls = []
+
+    def counted(w):
+        calls.append(tuple(w.shape))
+        return hook(w)
+
+    den = AudfprintPeaks(afp_settings["audfprint"], denoising=True, denoising_model="demucs",
+                         wave_denoiser=counted, device=dm.device)
+    expected = []
+    for s in range(0, DENOISED_QUERIES, QUERY_BATCH):
+        expected += dm.match_waveforms(hook(aug_default[s : s + QUERY_BATCH]), shifts=SHIFTS)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    sets = {}
+    for name, qs in (("cleans", queries[:DENOISED_QUERIES]), ("default_parameters", list(aug_default))):
+        t0 = time.perf_counter()
+        acc = compute_accuracy_batched(qs, ht, analyzer, den, batch_size=QUERY_BATCH, shifts=SHIFTS,
+                                       device_matcher=dm, names=q_names, device=dm.device)
+        sets[name] = {"accuracy": acc, "queries_per_s": DENOISED_QUERIES / (time.perf_counter() - t0)}
+    recorded = []
+    match = dm.match_waveforms
+
+    def recording(*args, **kwargs):
+        out = match(*args, **kwargs)
+        recorded.extend(out)
+        return out
+
+    calls.clear()
+    dm.match_waveforms = recording
+    try:
+        t0 = time.perf_counter()
+        arm = compute_accuracy_batched(list(aug_default), ht, den, batch_size=QUERY_BATCH, shifts=SHIFTS,
+                                       device_matcher=dm, names=q_names, device=dm.device)
+        arm_qps = DENOISED_QUERIES / (time.perf_counter() - t0)
+    finally:
+        del dm.match_waveforms
+    arm_calls = list(calls)
+    t0 = time.perf_counter()
+    metrics = compute_peaks_metrics_batched(q_paths, analyzer, den, cleans_path=cleans_dir)
+    metrics_s = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    line = {
+        "phase": "demucs_denoised", "weights": label, "queries": DENOISED_QUERIES, "shifts": SHIFTS,
+        "sets": sets, "denoised_arm_alone_queries_per_s": arm_qps,
+        "denoised_arm_alone_accuracy": arm["No Denoising"],
+        "hook_calls_denoised_arm": arm_calls,
+        "denoised_arm_verdicts_equal_pre_denoised": recorded == expected,
+        "peaks_metrics": metrics, "peaks_metrics_queries_per_s": DENOISED_QUERIES / metrics_s,
+        "launches": launches,
+    }
+    emit(line)
+    for name, row in sets.items():
+        if set(row["accuracy"]) != {"No Denoising", "With Denoising", "Mix Pipeline"}:
+            fail(f"demucs_denoised {label} {name}: accuracies {sorted(row['accuracy'])}")
+    if arm_calls != [(QUERY_BATCH, QUERY_SECONDS * SR)] * (DENOISED_QUERIES // QUERY_BATCH):
+        fail(f"demucs_denoised {label}: the waveform hook ran {arm_calls}, not once per batch")
+    if recorded != expected:
+        fail(f"demucs_denoised {label}: the denoised arm's verdicts differ from the plain matcher's "
+             "on pre-denoised batches")
+    if set(metrics) != set(PEAKS_METRICS) or not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"demucs_denoised {label}: peak metrics missing or not finite: {metrics}")
+    for k, n in launches.items():
+        if n <= 0:
+            fail(f"{k} kernel did not launch in the Demucs-denoised runs ({label})")
+    return line
+
+
+def demucs_train_step_check(dev) -> dict:
+    """Phase 18: one strict float32 "audio" step of a seeded
+    ``Demucs(hidden=8, depth=3)`` through ``Trainer.train_step`` on the card
+    and on the CPU from the same weights and batch: the loss terms; the same
+    step in float64, every gradient (float32 gradients of a ReLU network
+    jump where rounding flips a ReLU, so they are reported, not held)."""
+    clean = next(synthetic_clean_batches(8, TRAIN_SAMPLES, SR, seed=DEMUCS_SEED))
+    r = np.random.default_rng(DEMUCS_SEED)
+    aug = (0.7 * clean + 0.2 * r.standard_normal(clean.shape)).astype(np.float32)
+    runs = {}
+    for label, device, dtype in (("cpu", "cpu", torch.float32), ("card", dev, torch.float32),
+                                 ("cpu64", "cpu", torch.float64), ("card64", dev, torch.float64)):
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer = Trainer(seeded_demucs(DEMUCS_SEED, hidden=8, depth=3).to(dtype), iter(()), 1,
+                              iter(()), 1, DEMUCS_TRAIN_LR, 2, tmp, input_type="audio",
+                              factor_sc=TP.FACTOR_SC, factor_mag=TP.FACTOR_MAG, device=device)
+        terms = trainer.train_step(torch.from_numpy(clean).to(device, dtype),
+                                   torch.from_numpy(aug).to(device, dtype))
+        runs[label] = ({k: float(v) for k, v in terms.items()},
+                       {k: p.grad.cpu() for k, p in trainer.model.named_parameters()})
+    (terms_c, grads_c), (terms_g, grads_g) = runs["cpu"], runs["card"]
+    grads_c64, grads_g64 = runs["cpu64"][1], runs["card64"][1]
+    line = {
+        "phase": "demucs_train_step_check", "model": "Demucs(hidden=8, depth=3)",
+        "batch": clean.shape[0], "samples": clean.shape[1], "terms_cpu": terms_c, "terms_card": terms_g,
+        "terms_rel_max": max(abs(terms_g[k] - v) / abs(v) for k, v in terms_c.items()),
+        "grad_rel_max_float64": max(_rel_max(grads_g64[k], grads_c64[k]) for k in grads_c64),
+        "grad_rel_max_float32_not_held": max(_rel_max(grads_g[k], grads_c[k]) for k in grads_c),
+        "tensors": len(grads_c),
+    }
+    emit(line)
+    if not line["terms_rel_max"] <= MAX_STEP_LOSS_REL:
+        fail(f"Demucs train step: a loss term on the card is {line['terms_rel_max']} (relative) "
+             "from the CPU's")
+    if not line["grad_rel_max_float64"] <= MAX_STEP_GRAD_REL:
+        fail(f"Demucs train step: a float64 gradient on the card is {line['grad_rel_max_float64']} "
+             "of its largest value from the CPU's")
+    return line
+
+
+def demucs_train_phase(dev, noise_bank, ir_bank, ckpt_root: str) -> str:
+    """Phase 19: the published Demucs trained by ``Trainer`` on the card
+    ("audio": L1 + multi-resolution STFT, factors 0.5) with
+    default_parameters augmentation inside each step, lr 5e-4, in strict
+    float32 and in bfloat16 from the same seeded weights. Returns the
+    float32 run's best checkpoint path."""
+    params = test_pipelines_parameters["default_parameters"]
+    fp = AugmentFP(noise_bank, SR, parameters=params, impulse_response_dir=ir_bank, device=dev)
+    train_batches, val_batches, data_s = training_batches()
+    flops = demucs_forward_flops(Demucs().to(dev).eval(), torch.zeros((1, TRAIN_SAMPLES), device=dev))
+    flops_step = 3 * flops["total"] * TP.BATCH_SIZE  # forward + backward (two products)
+    runs = {}
+    for label, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        trainer = Trainer(
+            seeded_demucs(DEMUCS_SEED, dtype=dtype), cycle(train_batches), TRAIN_STEPS,
+            cycle(val_batches), TRAIN_VAL_STEPS, DEMUCS_TRAIN_LR, TRAIN_EPOCHS + 1,
+            os.path.join(ckpt_root, label), input_type="audio", augmenter=fp,
+            factor_sc=TP.FACTOR_SC, factor_mag=TP.FACTOR_MAG,
+            scheduler=ReduceLROnPlateau(factor=TP.FACTOR, patience=TP.PATIENCE),
+            early_stopping=EarlyStopping(patience=TP.EARLY_STOP, min_delta=TP.MIN_DELTA),
+            save=True, device=dev,
+        )
+        runs[label], prof = run_training(trainer, torch.from_numpy(train_batches[0]).to(dev), flops_step,
+                                         f"train_step, Demucs {label}, batch {TP.BATCH_SIZE} x 3 s")
+        runs[label]["cudnn_lstm_share_of_device"] = prof["cudnn_lstm_share_of_device"]
+        del trainer, prof
+        torch.cuda.empty_cache()
+    emit({
+        "phase": "demucs_train", "model": "Demucs() rescaled, seed 48", "batch": TP.BATCH_SIZE,
+        "samples": TRAIN_SAMPLES, "augmentation": "default_parameters, dcase_shaped_banks()",
+        "lr": DEMUCS_TRAIN_LR, "epochs": TRAIN_EPOCHS, "steps_per_epoch": TRAIN_STEPS,
+        "val_steps": TRAIN_VAL_STEPS, "flops_forward_one": flops, "flops_step": flops_step,
+        "host_batches_seconds": data_s, "runs": runs,
+    })
+    return os.path.join(ckpt_root, "float32", "best_epoch", "state.pt")
+
+
+def streamer_phase(dev) -> dict:
+    """Phase 21: ``DemucsStreamer`` over the seeded published Demucs at
+    8 kHz, fed STREAM_SECONDS of white noise frame by frame as the
+    reference's self-benchmark feeds it, then flushed: the delta to the
+    offline forward (under 5%), the initial lag, the time per frame on the
+    host's clock (which includes the copy of each frame's output to the host)
+    and on the card's, and the real-time factor (under 1). The delta on a
+    synthetic music clip is reported, not held."""
+    model = seeded_demucs(DEMUCS_SEED).to(dev)
+    rng = np.random.default_rng(DEMUCS_SEED)
+    noise = torch.from_numpy(rng.standard_normal((1, STREAM_SECONDS * SR), dtype=np.float32))
+    music = torch.from_numpy(next(synthetic_clean_batches(1, STREAM_SECONDS * SR, SR, seed=DEMUCS_SEED)))
+
+    def stream(x, timer=None):
+        s = DemucsStreamer(model)
+        outs, pending, size = [], x, s.total_length
+        while pending.shape[1] > 0:
+            with timer.stage("feed") if timer is not None else contextlib.nullcontext():
+                outs.append(s.feed(pending[:, :size]))
+            pending, size = pending[:, size:], model.total_stride
+        outs.append(s.flush())
+        out = torch.cat(outs, dim=1)
+        with torch.inference_mode():
+            offline = model(x.to(dev)).cpu()
+        delta = float(torch.linalg.norm(offline - out[:, : x.shape[1]]) / torch.linalg.norm(offline))
+        return delta, s
+
+    stream(noise[:, :SR])  # warm-up
+    timer = StageTimer(device=dev)
+    delta, s = stream(noise, timer)
+    music_delta, _ = stream(music)
+    stride_ms = s.stride / SR * 1e3
+    tpf_ms = 1e3 * s.time_per_frame
+    line = {
+        "phase": "streamer", "model": "Demucs() seeded, rescaled", "sample_rate": SR,
+        "seconds": STREAM_SECONDS, "frames": s.frames, "frame_length": s.frame_length,
+        "total_length": s.total_length, "stride": s.stride,
+        "model_size_mb": sum(p.numel() for p in model.parameters()) * 4 / 2**20,
+        "delta_batch_streaming": delta, "delta_synthetic_music_not_held": music_delta,
+        "initial_lag_ms": s.total_length / SR * 1e3, "stride_ms": stride_ms,
+        "time_per_frame_ms": tpf_ms, "feed_card_ms": timer.summary()["feed"]["mean_ms"],
+        "rtf": tpf_ms / stride_ms,
+    }
+    emit(line)
+    if not delta < MAX_STREAM_DELTA:
+        fail(f"streamer: batch/streaming delta {delta:.2%}")
+    if not line["rtf"] < 1:
+        fail(f"streamer: real-time factor {line['rtf']}")
     return line
 
 
@@ -1252,7 +1689,35 @@ def main() -> None:
         os.path.join(tmp, "cleans"))
     launches_trained = trained["launches"]
     ckpt_dir.cleanup()
+    del trained
+    torch.cuda.empty_cache()
+
+    # ---- 16-21. Demucs: the published model in three precisions, as the
+    # waveform denoiser of the identification and the peak metrics, one
+    # train step card against CPU, training in two precisions, the trained
+    # checkpoint as the denoiser, streaming
+    t_demucs = time.perf_counter()
+    cleans_dir = os.path.join(tmp, "cleans")
+    demucs = demucs_phase(dev, aug_default[:DEMUCS_BATCH])
+    seeded_den = demucs_denoised_phase("seeded", demucs, ht, dm, analyzer, queries, aug_default,
+                                       den_names, q_paths, cleans_dir)
+    demucs_hook = demucs_denoiser(demucs)
+    emit(profile_call("match_waveforms with the Demucs, 128 queries, 4 shifts",
+                      lambda: dm.match_waveforms(demucs_hook(aug_batch), shifts=SHIFTS)))
+    del demucs, demucs_hook
+    torch.cuda.empty_cache()
+    demucs_train_step_check(dev)
+    ckpt_dir = tempfile.TemporaryDirectory()
+    best = demucs_train_phase(dev, noise_bank, ir_bank, ckpt_dir.name)
+    trained_demucs = Demucs().to(dev)
+    trained_demucs.load_state_dict(torch.load(best, map_location=dev, weights_only=True)["model"])
+    trained_den = demucs_denoised_phase("trained: demucs_train float32 best_epoch", trained_demucs, ht, dm,
+                                        analyzer, queries, aug_default, den_names, q_paths, cleans_dir)
+    del trained_demucs
+    ckpt_dir.cleanup()
     tmp_dir.cleanup()
+    streamer_phase(dev)
+    emit({"phase": "demucs_phases", "seconds": time.perf_counter() - t_demucs})
 
     kernels = []
     for kname, line in (("forward_prune", 60), ("backward_prune", 113)):
@@ -1262,13 +1727,16 @@ def main() -> None:
             "source": "musicfpaugment_torch/csrc/peaks_prune.cu",
             "replaces": f"musicfpaugment_tpu/afp/audfprint/peaks_pallas.py:{line}",
             "launches": launches[kname] + launches_conditions[kname]
-            + launches_denoised[kname] + launches_metrics[kname] + launches_trained[kname],
+            + launches_denoised[kname] + launches_metrics[kname] + launches_trained[kname]
+            + seeded_den["launches"][kname] + trained_den["launches"][kname],
             "launches_ingest": launches_ingest[kname],
             "launches_match": launches_match[kname],
             "launches_conditions": launches_conditions[kname],
             "launches_denoised": launches_denoised[kname],
             "launches_peaks_metrics": launches_metrics[kname],
             "launches_trained_denoiser": launches_trained[kname],
+            "launches_demucs_denoised": seeded_den["launches"][kname],
+            "launches_demucs_trained": trained_den["launches"][kname],
             "max_abs_err": max(q["max_abs_err"], i["max_abs_err"], st["max_abs_err"]),
             "ms": st["kernel_ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],

@@ -1,15 +1,18 @@
 """Carry state across from the JAX package.
 
 What a JAX run leaves behind is its :class:`HashTable`, its augmentation
-banks and its UNet weights. :func:`hash_table_from_arrays` adopts that
-table's numpy arrays (the fields of its npz file),
+banks and its UNet and Demucs weights. :func:`hash_table_from_arrays`
+adopts that table's numpy arrays (the fields of its npz file),
 :func:`noise_bank_from_arrays` / :func:`ir_bank_from_arrays` the fields of a
 JAX ``NoiseBank`` / ``IRBank`` as numpy arrays, and
 :func:`unet_state_dict_from_flax` the Flax UNet's ``params`` and
 ``batch_stats`` as nested dicts of numpy arrays, all without importing the
 JAX package; :func:`unet_state_dict_to_flax` carries a UNet trained here
-back the other way. :func:`unet_denoiser` makes of a :class:`UNet` the spectrogram
-hook that the analyzer and the matcher take.
+back the other way. :func:`unet_denoiser` makes of a :class:`UNet` the
+spectrogram hook that the analyzer and the matcher take.
+:func:`demucs_state_dict_from_flax`, :func:`demucs_state_dict_to_flax` and
+:func:`demucs_denoiser` do the same for a :class:`Demucs` and its waveform
+hook.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from musicfpaugment_torch.afp.audfprint.hash_table import HashTable
 from musicfpaugment_torch.augment.banks import IRBank, NoiseBank
 from musicfpaugment_torch.device import DeviceLike, resolve_device
+from musicfpaugment_torch.models.demucs import Demucs
 from musicfpaugment_torch.models.unet import UNet
 
 
@@ -224,5 +228,174 @@ def unet_denoiser(model: UNet) -> Callable[[torch.Tensor], torch.Tensor]:
     def hook(sgram: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
             return model(sgram).to(torch.float32)
+
+    return hook
+
+
+# ------------------------------------------------------------------ Demucs
+
+_GATES = ("i", "f", "g", "o")  # nn.LSTM's order of the four gates
+
+
+def _demucs_leaf_table(depth: int, bi: bool):
+    """(flax leaf, state_dict key, layout) of every Demucs leaf but the
+    LSTM cells'. Flax names its layers in creation order: the two
+    convolutions of each encoder stage, the LSTM, then per decoder stage
+    (deepest first) a 1x1 convolution and a transposed convolution."""
+    table = []
+    for i in range(depth):
+        for n, sub in ((2 * i, 0), (2 * i + 1, 2)):
+            table.append((f"Conv_{n}/kernel", f"encoder.{i}.{sub}.weight", "conv"))
+            table.append((f"Conv_{n}/bias", f"encoder.{i}.{sub}.bias", None))
+        table.append((f"Conv_{2 * depth + i}/kernel", f"decoder.{i}.0.weight", "conv"))
+        table.append((f"Conv_{2 * depth + i}/bias", f"decoder.{i}.0.bias", None))
+        table.append((f"ConvTranspose_{i}/kernel", f"decoder.{i}.2.weight", "convT"))
+        table.append((f"ConvTranspose_{i}/bias", f"decoder.{i}.2.bias", None))
+    if bi:
+        table.append(("BLSTM_0/Dense_0/kernel", "lstm.linear.weight", "dense"))
+        table.append(("BLSTM_0/Dense_0/bias", "lstm.linear.bias", None))
+    return table
+
+
+def _lstm_cells(layers: int, bi: bool):
+    """(flax cell prefix, nn.LSTM suffix) of each cell: Flax makes a layer's
+    forward cell, then its reverse one."""
+    dirs = 2 if bi else 1
+    for n in range(layers * dirs):
+        yield f"BLSTM_0/OptimizedLSTMCell_{n}/", f"_l{n // dirs}" + ("_reverse" if n % dirs else "")
+
+
+def demucs_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of the port's :class:`Demucs` from the Flax
+    Demucs' ``params`` (nested dicts of numpy arrays, as
+    ``jax.tree_util.tree_map(np.asarray, variables["params"])`` gives them),
+    so that both packages run the same weights.
+    ``load_state_dict(strict=True)`` takes it.
+
+    Layouts: a Flax conv kernel (k, in, out) becomes (out, in, k); a Flax
+    transposed-conv kernel (k, in, out) becomes (in, out, k) *flipped along
+    k* (Flax correlates the dilated input with the kernel as it stands,
+    ``ConvTranspose1d`` flips it). An LSTM cell's input kernels ``ii, if,
+    ig, io`` (in, H) concatenated and transposed are ``weight_ih``, its
+    hidden kernels ``hi, hf, hg, ho`` ``weight_hh``, their biases
+    ``bias_ih`` (``bias_hh`` is 0: Flax has one bias per gate); the
+    bidirectional model's cells 2l and 2l+1 are layer l's forward and
+    reverse directions, and its ``Dense_0`` is ``lstm.linear``.
+
+    ``chin``, ``chout``, ``hidden``, ``depth``, ``causal`` and ``growth``
+    are read off the leaves; the other constructor fields are taken at their
+    defaults. Raises ``ValueError`` on a missing leaf, on a leaf the model
+    has no use for and on a shape that does not fit that model."""
+    leaves = _flat(params)
+
+    def take(leaf: str, ndim: int) -> np.ndarray:
+        if leaf not in leaves:
+            raise ValueError(f"Flax Demucs params lack the leaf {leaf}")
+        a = np.asarray(leaves.pop(leaf), np.float32)
+        if a.ndim != ndim:
+            raise ValueError(f"{leaf}: expected {ndim} dims, not the shape {a.shape}")
+        return a
+
+    depth = sum(1 for k in leaves if k.startswith("ConvTranspose_") and k.endswith("/kernel"))
+    if depth == 0 or "Conv_0/kernel" not in leaves:
+        raise ValueError("Flax Demucs params lack the leaf Conv_0/kernel or ConvTranspose_0/kernel")
+    first = leaves["Conv_0/kernel"]
+    last = leaves.get(f"ConvTranspose_{depth - 1}/kernel")
+    if first.ndim != 3 or last is None or last.ndim != 3:
+        raise ValueError("Flax conv kernels must be (k, in, out)")
+    hidden = int(first.shape[2])
+    second = leaves.get("Conv_2/kernel")
+    growth = second.shape[-1] / hidden if depth > 1 and second is not None else 2
+    bi = "BLSTM_0/Dense_0/kernel" in leaves
+    config = dict(chin=int(first.shape[1]), chout=int(last.shape[2]), hidden=hidden,
+                  depth=depth, causal=not bi, growth=growth)
+    with torch.device("meta"):
+        model = Demucs(**config)
+    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+
+    state = {}
+    for leaf, key, layout in _demucs_leaf_table(depth, bi):
+        a = take(leaf, 1 if layout is None else 3 if layout.startswith("conv") else 2)
+        if layout == "conv":
+            a = a.transpose(2, 1, 0)
+        elif layout == "convT":
+            a = a[::-1].transpose(1, 2, 0)
+        elif layout == "dense":
+            a = a.T
+        state[key] = a
+    for cell, suffix in _lstm_cells(model.lstm.lstm.num_layers, bi):
+        state[f"lstm.lstm.weight_ih{suffix}"] = np.concatenate(
+            [take(f"{cell}i{g}/kernel", 2) for g in _GATES], axis=1).T
+        state[f"lstm.lstm.weight_hh{suffix}"] = np.concatenate(
+            [take(f"{cell}h{g}/kernel", 2) for g in _GATES], axis=1).T
+        bias = np.concatenate([take(f"{cell}h{g}/bias", 1) for g in _GATES])
+        state[f"lstm.lstm.bias_ih{suffix}"] = bias
+        state[f"lstm.lstm.bias_hh{suffix}"] = np.zeros_like(bias)
+    if leaves:
+        raise ValueError(f"Flax leaves the Demucs has no use for: {sorted(leaves)}")
+    for key, a in state.items():
+        if tuple(a.shape) != want[key]:
+            raise ValueError(f"{key}: shape {tuple(a.shape)} does not fit {want[key]} "
+                             f"(Demucs with {config})")
+    return {k: torch.from_numpy(np.array(a, np.float32, order="C")) for k, a in state.items()}
+
+
+def demucs_state_dict_to_flax(state_dict: Mapping) -> Dict:
+    """The inverse of :func:`demucs_state_dict_from_flax`: the Flax Demucs'
+    ``params`` as nested dicts of numpy float32 arrays from the
+    ``state_dict`` of the port's :class:`Demucs`, so that a model trained
+    here runs in the JAX package (``{"params": ...}``). Each LSTM gate's
+    Flax bias is ``bias_ih + bias_hh``. Any key the table does not name
+    raises ``ValueError``."""
+    state = dict(state_dict)
+    depth = sum(1 for k in state if k.startswith("decoder.") and k.endswith(".2.weight"))
+    bi = "lstm.linear.weight" in state
+    layers = sum(1 for k in state if k.startswith("lstm.lstm.weight_ih_l") and "reverse" not in k)
+    tree: Dict = {}
+
+    def put(leaf: str, a: np.ndarray) -> None:
+        node = tree
+        *parents, name = leaf.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = np.array(a, np.float32, order="C")
+
+    def pop(key: str) -> np.ndarray:
+        if key not in state:
+            raise ValueError(f"the Demucs state_dict lacks {key}")
+        return state.pop(key).detach().to("cpu", torch.float32).numpy()
+
+    for leaf, key, layout in _demucs_leaf_table(depth, bi):
+        a = pop(key)
+        if layout == "conv":
+            a = a.transpose(2, 1, 0)
+        elif layout == "convT":
+            a = a.transpose(2, 0, 1)[::-1]
+        elif layout == "dense":
+            a = a.T
+        put(leaf, a)
+    for cell, suffix in _lstm_cells(layers, bi):
+        for kind, key in (("i", "weight_ih"), ("h", "weight_hh")):
+            for g, block in zip(_GATES, np.split(pop(f"lstm.lstm.{key}{suffix}").T, 4, axis=1)):
+                put(f"{cell}{kind}{g}/kernel", block)
+        bias = pop(f"lstm.lstm.bias_ih{suffix}") + pop(f"lstm.lstm.bias_hh{suffix}")
+        for g, block in zip(_GATES, np.split(bias, 4)):
+            put(f"{cell}h{g}/bias", block)
+    if state:
+        raise ValueError(f"state_dict keys the Flax Demucs has no leaf for: {sorted(state)}")
+    return tree
+
+
+def demucs_denoiser(model: Demucs) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The waveform hook of ``model``: (B, T) -> (B, T) float32, in
+    ``eval()`` mode under ``torch.inference_mode``, on the device the model
+    is on. Give it to ``AudfprintPeaks(..., denoising=True,
+    denoising_model="demucs", wave_denoiser=...)``."""
+    model.eval()
+    model.lstm.lstm.flatten_parameters()
+
+    def hook(wave: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return model(wave).to(torch.float32)
 
     return hook

@@ -1,6 +1,6 @@
 """Training CLI (port of musicfpaugment_tpu/train/train.py):
 
-    python -m musicfpaugment_torch.train.train --model unet [--device cuda]
+    python -m musicfpaugment_torch.train.train --model unet|demucs [--device cuda]
 
 Data sources resolve in order: MTG-Jamendo and DCASE where they are mounted
 (the reference's datasets), otherwise synthetic clean batches and synthetic
@@ -22,7 +22,7 @@ import torch
 from musicfpaugment_torch.augment.pipeline import AugmentFP, synthetic_banks
 from musicfpaugment_torch.data.synthetic import synthetic_clean_batches
 from musicfpaugment_torch.device import DeviceLike, resolve_device
-from musicfpaugment_torch.models import UNet
+from musicfpaugment_torch.models import Demucs, UNet, rescale_params
 from musicfpaugment_torch.train import parameters as P
 from musicfpaugment_torch.train.trainer import EarlyStopping, ReduceLROnPlateau, Trainer
 from musicfpaugment_torch.train.utils import fix_random_seeds
@@ -88,16 +88,19 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
         raise NotImplementedError(
             "multi-process training is not in the port yet (ROADMAP.md, queue 1 item 4)"
         )
-    if args.model == "demucs":
-        raise NotImplementedError(
-            "Demucs is not in the port yet (ROADMAP.md, queue 1 item 2)"
-        )
     device = resolve_device(args.device)
 
     fix_random_seeds()
-    learning_rate = 1e-3
-    model = UNet(1, 1, rate=0.05, base=args.base,
-                 dtype=torch.bfloat16 if args.bf16 else None)
+    dtype = torch.bfloat16 if args.bf16 else None
+    if args.model == "unet":
+        learning_rate = 1e-3
+        model = UNet(1, 1, rate=0.05, base=args.base, dtype=dtype)
+        input_type = "spec"
+    else:
+        learning_rate = 5e-4
+        # the reference's rescale of a fresh model (the JAX trainer's init)
+        model = rescale_params(Demucs(dtype=dtype), reference=0.1)
+        input_type = "audio"
     ckpt_name = f"{args.model}_lr_{learning_rate}_BS_{args.batch_size}"
     ckpt_path = os.path.join(CHECKPOINT_ROOT, ckpt_name)
 
@@ -117,7 +120,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
         learning_rate=learning_rate,
         nb_epochs=args.epochs,
         checkpoint=ckpt_path,
-        input_type="spec",
+        input_type=input_type,
         augmenter=augmenter,
         factor_sc=P.FACTOR_SC,
         factor_mag=P.FACTOR_MAG,

@@ -7,13 +7,13 @@ it there (its draws are made on the host from the trainer's own seeded
 generator), then spectrograms, the forward, the loss, the backward pass and
 the Adam update. Two input types: ``"spec"`` (the UNet: L1 on per-example
 max-normalised magnitude spectrograms, the running statistics updated) and
-``"audio"`` (a waveform model: L1 + multi-resolution STFT). Validation adds
+``"audio"`` (Demucs: L1 + multi-resolution STFT). Validation adds
 the micro-PSNR and steps the plateau scheduler on the validation loss.
 
 Precision: the whole step runs with cuDNN's TF32 off, backward pass
 included, so a model with ``dtype=None`` trains in strict float32; a UNet
-with ``dtype=torch.bfloat16`` computes its body in bfloat16 by its own
-autocast. Parameters and Adam's state stay float32 either way.
+or a Demucs with ``dtype=torch.bfloat16`` computes its body in bfloat16 by
+its own autocast. Parameters and Adam's state stay float32 either way.
 
 As in the JAX package, an epoch runs exactly ``steps`` steps and averages
 by ``steps``; a resumed run starts at the saved epoch, the last completed
@@ -131,8 +131,10 @@ class Trainer:
     ``train_iter`` / ``val_iter`` yield clean (B, T) batches (numpy or
     tensors), or (clean, augmented) tuples; with an ``augmenter`` the
     augmented half is always made in the step. ``model`` carries its own
-    weights (PyTorch builds them at construction), so ``example_batch`` is
-    only checked to be a (B, T) batch. ``monitoring`` is accepted; the
+    weights (PyTorch builds them at construction) and the trainer takes them
+    as given: a fresh :class:`Demucs` gets ``rescale_params(model, 0.1)``
+    from its caller, as the CLI does (the JAX trainer applies it at init).
+    ``example_batch`` is only checked to be a (B, T) batch. ``monitoring`` is accepted; the
     epoch's scalars are in ``history``. ``device``: ``None`` is CUDA.
     """
 
@@ -159,11 +161,6 @@ class Trainer:
         cache_validation_set: bool = True,
         device: DeviceLike = None,
     ) -> None:
-        if type(model).__name__ == "Demucs":
-            raise NotImplementedError(
-                "Demucs and its rescale_params are not in the port yet "
-                "(ROADMAP.md, queue 1 item 2)"
-            )
         if input_type not in ("spec", "audio"):
             raise ValueError(f"input_type must be 'spec' or 'audio', not {input_type!r}")
         if example_batch is not None and np.ndim(example_batch) != 2:

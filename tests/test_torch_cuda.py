@@ -1,6 +1,6 @@
 """The port on the card: its CUDA kernels against their plain PyTorch
-versions, and the UNet, the denoiser hook, the metrics and a training step
-against the CPU.
+versions, and the UNet, the denoiser hook, the metrics, a training step,
+Demucs, its streamer and the sinc resampler against the CPU.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 neither JAX nor the JAX package, so it also runs where JAX is not installed:
@@ -416,3 +416,49 @@ def test_save_and_resume_on_card(cuda_device, tmp_path):
     assert next(resumed.model.parameters()).is_cuda
     resumed.training_loop()
     assert resumed.step == 4 and np.isfinite(resumed.history[-1]["val"]["loss"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidirectional"])
+def test_demucs_on_card_matches_cpu(cuda_device, causal):
+    """Strict float32 within 1e-4 of the largest output (float32 rounding
+    through cuDNN's convolutions and LSTM), bfloat16 within 5e-2; every
+    milestone of the same shape on both."""
+    from musicfpaugment_torch.models import Demucs, rescale_params
+
+    torch.manual_seed(3)
+    cpu = rescale_params(Demucs(hidden=8, depth=3, causal=causal), 0.1).eval()
+    card = Demucs(hidden=8, depth=3, causal=causal).to(cuda_device).eval()
+    card.load_state_dict(cpu.state_dict())
+    bf16 = Demucs(hidden=8, depth=3, causal=causal, dtype=torch.bfloat16).to(cuda_device).eval()
+    bf16.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(next(synthetic_clean_batches(3, 20000, 8000, seed=5)))
+    with torch.no_grad():
+        want = cpu(x)
+        top = float(want.abs().max())
+        assert float((card(x.to(cuda_device)).cpu() - want).abs().max()) <= 1e-4 * top
+        assert float((bf16(x.to(cuda_device)).cpu() - want).abs().max()) <= 5e-2 * top
+        for stop in ("frontend", "enc1", "enc", "lstm", "dec"):
+            assert card(x.to(cuda_device), stop_at=stop).shape == cpu(x, stop_at=stop).shape
+
+
+@pytest.mark.cuda
+def test_streamer_and_resampler_on_card_match_cpu(cuda_device):
+    from musicfpaugment_torch.core import resample
+    from musicfpaugment_torch.models import Demucs
+    from musicfpaugment_torch.models.streamer import DemucsStreamer
+
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 3001)).astype(np.float32))
+    for fn in (resample.upsample2, resample.downsample2, lambda t: resample.resample_frac(t, 8000, 16000)):
+        want = fn(x)
+        assert float((fn(x.to(cuda_device)).cpu() - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    torch.manual_seed(4)
+    model = Demucs(hidden=8, depth=4).eval()
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        streamer = DemucsStreamer(model.to(dev))
+        parts = [streamer.feed(c) for c in np.array_split(x[:1].numpy(), 5, axis=1)]
+        outs[str(dev)] = torch.cat(parts + [streamer.flush()], dim=1)
+        assert outs[str(dev)].device.type == "cpu" and outs[str(dev)].shape[1] >= 3001
+    want = outs["cpu"]
+    assert float((outs["cuda"] - want).abs().max()) <= 1e-4 * float(want.abs().max())

@@ -24,6 +24,7 @@ cannot match). Tolerances:
   where the signs flipped).
 """
 
+import functools
 import json
 import os
 
@@ -38,14 +39,15 @@ from flax import linen as fnn
 from musicfpaugment_torch import convert
 from musicfpaugment_torch.augment import AugmentFP, synthetic_banks
 from musicfpaugment_torch.data.synthetic import synthetic_clean_batches
-from musicfpaugment_torch.models import UNet
+from musicfpaugment_torch.models import Demucs, UNet, rescale_params
 from musicfpaugment_torch.train import train as ttrain
 from musicfpaugment_torch.train.trainer import EarlyStopping, ReduceLROnPlateau, Trainer
+from musicfpaugment_tpu.models import Demucs as JDemucs
 from musicfpaugment_tpu.models import UNet as JUNet
 from musicfpaugment_tpu.parallel import make_mesh
 from musicfpaugment_tpu.train import trainer as jtrainer
 
-from torch_port_helpers import few_threads, rel_err  # noqa: F401
+from torch_port_helpers import few_threads, port_demucs, rel_err  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("few_threads")
 
@@ -228,6 +230,77 @@ def test_audio_branch_terms_and_gradient_match_jax(tmp_path, monkeypatch):
     assert tt.factor_sc == tt.factor_mag == 0.5
 
 
+@pytest.fixture(scope="module")
+def audio_run(tmp_path_factory):
+    """One "audio" step of ``Demucs(hidden=8, depth=3)`` in both trainers
+    from the JAX trainer's initial (rescaled) parameters: the loss terms in
+    float32; the gradient and the Adam step in float64 on both sides."""
+    tmp = tmp_path_factory.mktemp("audio")
+    train, val = _pairs(3, 1), _pairs(4, 1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MFPA_STFT_MATMUL", "0")
+        jt = _jax_trainer(JDemucs(hidden=8, depth=3), "audio", tmp, train, val)
+        params0 = jax.tree_util.tree_map(np.asarray, jt.state.params)
+        tt = _port_trainer(port_demucs(params0), "audio", tmp, train, val)
+        # Flax starts an LSTM's carry in its cell's float32 param_dtype, which
+        # a float64 scan refuses: start it in float64 (the same function)
+        init_carry = fnn.OptimizedLSTMCell.initialize_carry
+        mp.setattr(fnn.OptimizedLSTMCell, "initialize_carry", lambda cell, rng, shape: tuple(
+            c.astype(jnp.float64) for c in init_carry(cell, rng, shape)))
+        with jax.enable_x64(True):
+            p64 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), params0)
+            clean, aug = (jnp.asarray(a, jnp.float64) for a in train[0])
+            grads = jax.jit(jax.grad(lambda p: jt._loss_terms(
+                p, {}, clean, aug, jax.random.PRNGKey(0), True)[0]))(p64)
+            adam = optax.adam(LR, b1=0.9, b2=0.999)
+            stepped = jax.jit(lambda g, p: optax.apply_updates(p, adam.update(g, adam.init(p), p)[0]))(
+                grads, p64)
+            to_np = lambda t: jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), t)  # noqa: E731
+            grads, stepped = to_np(grads), to_np(stepped)
+        mp.setattr(fnn.OptimizedLSTMCell, "initialize_carry", init_carry)
+        out = {"terms": (jt.train_epoch(1), tt.train_epoch(1))}
+    tt64 = _port_trainer(port_demucs(params0).double(), "audio", tmp, train, val, "port64")
+    before = {k: v.clone() for k, v in tt64.model.state_dict().items()}
+    tt64.train_step(*(torch.from_numpy(a).double() for a in train[0]))
+    p0 = _port_layout_float64(params0)
+    want_step = _port_layout_float64(stepped)
+    out["grads"] = ({k: p.grad for k, p in tt64.model.named_parameters()}, _port_layout_float64(grads))
+    out["deltas"] = ({k: v - before[k] for k, v in tt64.model.state_dict().items()},
+                     {k: want_step[k] - p0[k] for k in p0})
+    return out
+
+
+def _port_layout_float64(tree):
+    """Flax Demucs leaves (float64) in the port's layout, kept in float64
+    (the converter rounds to float32: each leaf goes through it as two
+    float32 parts), each LSTM gate bias under both ``bias_ih`` and
+    ``bias_hh``: nn.LSTM's two biases add up to Flax's one, so each takes
+    that bias' whole gradient and its own Adam step."""
+    hi = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), tree)
+    lo = jax.tree_util.tree_map(lambda a, h: np.asarray(a - h, np.float32), tree, hi)
+    hi, lo = convert.demucs_state_dict_from_flax(hi), convert.demucs_state_dict_from_flax(lo)
+    return {k: hi[j].double() + lo[j].double() for k in hi for j in [k.replace("bias_hh", "bias_ih")]}
+
+
+def test_audio_train_step_with_demucs_matches_jax(audio_run):
+    """Loss terms within 1e-5 (relative); float64 gradients within 1e-4 of
+    each tensor's largest value (measured 3.5e-8); the float64 Adam step
+    within lr / 100 of optax's on JAX's float64 gradient, every element
+    (measured 4.2e-7: in float64 no gradient's sign is in doubt)."""
+    j_terms, t_terms = audio_run["terms"]
+    assert set(t_terms) == set(j_terms) == {"loss", "l1_loss", "sc_loss", "mag_loss"}
+    for k, v in j_terms.items():
+        assert abs(t_terms[k] - v) <= 1e-5 * abs(v), k
+    got, want = audio_run["grads"]
+    assert set(got) == set(want)
+    for k, (err, top) in _grad_errors(got, want).items():
+        assert top > 0 and err <= 1e-4 * top, (k, err, top)
+    moved, want_moved = audio_run["deltas"]
+    for k, w in want_moved.items():
+        assert float((moved[k] - w).abs().max()) <= LR / 100, k
+        assert float(moved[k].abs().max()) > 0.5 * LR, k  # the step moved every tensor
+
+
 # ------------------------------------------------------------ schedule
 
 
@@ -400,19 +473,41 @@ def test_train_cli_runs_two_epochs_and_writes_jax_meta(tmp_path, monkeypatch):
     assert all(np.isfinite(h["val"]["loss"]) for h in trainer.history)
 
 
-@pytest.mark.parametrize("flag,item", [(["--model", "demucs"], "item 2"), (["--multihost"], "item 4")])
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bfloat16"])
+def test_train_cli_runs_demucs_with_its_rate_rescale_and_checkpoints(tmp_path, monkeypatch, bf16):
+    """``--model demucs``: a rescaled fresh Demucs (made small here) trained
+    on the "audio" path at lr 5e-4 for two epochs, checkpoints named as the
+    JAX CLI names them."""
+    monkeypatch.setattr(ttrain, "CHECKPOINT_ROOT", str(tmp_path))
+    monkeypatch.setattr(ttrain, "Demucs", functools.partial(Demucs, hidden=4, depth=3))
+    rescaled = []
+    monkeypatch.setattr(ttrain, "rescale_params",
+                        lambda m, reference: rescaled.append((m, reference)) or rescale_params(m, reference))
+    argv = ["--model", "demucs", "--device", "cpu", "--epochs", "3", "--batch-size", "2",
+            "--train-steps", "1", "--val-steps", "1", "--save"]
+    trainer = ttrain.main(argv + (["--bf16"] if bf16 else []))
+    assert isinstance(trainer.model, Demucs) and trainer.model.dtype == (torch.bfloat16 if bf16 else None)
+    assert rescaled == [(trainer.model, 0.1)]
+    assert trainer.input_type == "audio" and trainer.base_lr == 5e-4 and trainer.augmenter is not None
+    assert [h["epoch"] for h in trainer.history] == [1, 2]
+    assert set(trainer.history[-1]["train"]) == {"loss", "l1_loss", "sc_loss", "mag_loss"}
+    assert all(np.isfinite(h["val"]["loss"]) for h in trainer.history)
+    meta = json.loads((tmp_path / "demucs_lr_0.0005_BS_2" / "last_epoch" / "trainer_meta.json").read_text())
+    assert set(meta) == META_KEYS and meta["epoch"] == 2
+
+
+@pytest.mark.parametrize("flag,item", [(["--multihost"], "item 4")])
 def test_cli_options_not_ported_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         ttrain.main(["--device", "cpu"] + flag)
 
 
 def test_trainer_rejects_demucs_and_needs_cuda_by_default(tmp_path):
-    class Demucs(torch.nn.Module):
-        pass
-
+    """A Demucs is taken like any model (the trainer once refused it);
+    without CUDA the default device raises."""
     batches = _cycle(_pairs(9, 1))
-    with pytest.raises(NotImplementedError, match="item 2"):
-        Trainer(Demucs(), batches, 1, batches, 1, LR, 2, str(tmp_path), device="cpu")
+    tt = Trainer(Demucs(hidden=4, depth=2), batches, 1, batches, 1, LR, 2, str(tmp_path), device="cpu")
+    assert tt.train_epoch(1)["loss"] > 0
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the default device is valid")
     with pytest.raises(RuntimeError, match="device='cpu'"):

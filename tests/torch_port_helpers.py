@@ -208,3 +208,43 @@ def make_identity_unet(model):
             conv.weight[0, 0, 1, 1] = 1.0
         model.outc.weight[0, 0, 0, 0] = 1.0
     return model.eval()
+
+
+# ------------------------------------------------------------------ Demucs
+
+
+def flax_demucs_params(model, length=4000, seed=0):
+    """A Flax Demucs' ``params`` as nested dicts of numpy arrays: the tree's
+    shapes from ``jax.eval_shape`` of ``model.init`` (a real ``init`` at the
+    published width takes seconds), the values drawn from a numpy seed:
+    kernels normal over the square root of their fan-in, biases N(0, 0.1)."""
+    shape = (1, length) if model.chin == 1 else (1, model.chin, length)
+    tree = jax.eval_shape(model.init, jax.random.PRNGKey(0), jnp.zeros(shape, jnp.float32))
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        if path[-1].key == "bias":
+            return (0.1 * rng.standard_normal(leaf.shape)).astype(np.float32)
+        fan_in = int(np.prod(leaf.shape[:-1]))
+        return (rng.standard_normal(leaf.shape) / np.sqrt(fan_in)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, tree["params"])
+
+
+def port_demucs(params, **kwargs):
+    """The port's Demucs (on the CPU, in eval mode) carrying Flax weights;
+    ``kwargs`` are the constructor fields the weights do not show."""
+    from musicfpaugment_torch import convert
+    from musicfpaugment_torch.models import Demucs
+
+    state = convert.demucs_state_dict_from_flax(params)
+    depth = sum(k.startswith("decoder.") and k.endswith(".2.weight") for k in state)
+    first = state["encoder.0.0.weight"]
+    hidden = first.shape[0]
+    model = Demucs(
+        chin=first.shape[1], chout=state[f"decoder.{depth - 1}.2.weight"].shape[1],
+        hidden=hidden, depth=depth, causal="lstm.linear.weight" not in state,
+        growth=state["encoder.1.0.weight"].shape[0] // hidden if depth > 1 else 2, **kwargs,
+    )
+    model.load_state_dict(state, strict=True)
+    return model.eval()
