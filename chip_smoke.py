@@ -4,8 +4,9 @@
 
 Drives the audfprint identification path of ``musicfpaugment_torch`` end to
 end on the card, clean and degraded queries, its two denoisers (the UNet on
-spectrograms, Demucs on waveforms) and their training, through the entry
-points a user calls:
+spectrograms, Demucs on waveforms) and their training, then the Dejavu path
+(the CSR index, the batched matcher, the SQLite oracle, both denoiser arms),
+through the entry points a user calls:
 
 1. device  - the card's name and power limit;
 2. build   - compiles the CUDA kernels from ``musicfpaugment_torch/csrc``;
@@ -108,6 +109,39 @@ points a user calls:
 21. streamer - ``DemucsStreamer`` over the seeded Demucs, 10 s at 8 kHz
              frame by frame: delta to the offline forward under 5%, initial
              lag, time per frame, real-time factor under 1.
+22. dejavu_ingest - Dejavu at the paper's settings (8 kHz, n_fft 512, hop
+             256, fan 3, amp_min 50, neighbourhood 10): the 10,000 tracks,
+             each cut to whole seconds and batched by length (256 a batch),
+             through ``DejavuDeviceIndex.ingest_arrays``, ``finalize`` and
+             the matcher's upload: tracks/s, rows, bucket depth, rows
+             dropped at the cap of 256, the CSR bytes on the card, the host
+             share (one batch profiled), the crops that reach past their
+             track's cut (< 1 s of their audio is not indexed);
+23. dejavu_match - ``recognize_waveforms`` over the 1,024 clean crops in
+             batches of 128 (accuracy >= 0.99) and the 128 unseen crops
+             (NOMATCH rate reported, not held): queries/s;
+24. dejavu_conditions - accuracy and queries/s on phase 7's augmented
+             queries of each condition;
+25. dejavu_oracle - 256 tracks and 128 queries (64 clean, 64
+             ``default_parameters``): one set of card masks fed to the host
+             path (SHA1 hashes, SQLite, ``align_matches``) and to the device
+             path (``pack_hashes_from_masks``, ``_dejavu_match_impl``):
+             every field of every verdict equal;
+26. dejavu_card_vs_cpu - one batch of 128 against the same index on the
+             card and on the CPU: masks equal in >= 0.999 of cells, >= 126
+             verdict songs equal, the match of the same hashes
+             bit-identical;
+27. dejavu_denoised - the seeded ``base=64`` UNet as a second matcher's
+             spectrogram hook through ``compute_accuracy_batched`` over 2 x
+             256 queries (the three accuracies, queries/s; card against CPU
+             on 16 queries, masks >= 0.999 of cells), and the seeded
+             published Demucs through the per-file ``compute_accuracy`` on
+             32 of phase 25's queries over its SQLite corpus;
+28. dejavu_peaks_metrics - ``compute_peaks_metrics_batched`` over phase
+             12's 256 ``.npy`` pairs with each arm: queries/s;
+29. profile - one Dejavu ``match_waveforms`` batch of 128 under
+             torch.profiler. The Dejavu path reaches no prune kernel: the
+             launch counts must not move across phases 22-29.
 
 Every phase prints a JSON line. Launch counters are zeroed just before
 ingest and read after match: both kernels must have launched in each (once
@@ -150,6 +184,17 @@ from musicfpaugment_torch.afp.audfprint.analyzer import (
     pad_waveform_batch,
     valid_frames_for,
 )
+from musicfpaugment_torch.afp.dejavu import (
+    Dejavu,
+    DejavuDeviceIndex,
+    DejavuDeviceMatcher,
+    SQLiteDatabase,
+    fingerprint_spectrogram_batch,
+    generate_hashes,
+    pack_hashes_from_masks,
+)
+from musicfpaugment_torch.afp.dejavu.fingerprint import peaks_from_mask
+from musicfpaugment_torch.afp.dejavu.matcher_device import _dejavu_match_impl as dj_match_impl
 from musicfpaugment_torch.augment import AugmentFP, dcase_shaped_banks
 from musicfpaugment_torch.augment import transforms as T
 from musicfpaugment_torch.convert import demucs_denoiser, unet_denoiser
@@ -161,6 +206,7 @@ from musicfpaugment_torch.device import cudnn_tf32
 from musicfpaugment_torch.models import Demucs, UNet, rescale_params
 from musicfpaugment_torch.models.demucs import STOP_AT
 from musicfpaugment_torch.models.streamer import DemucsStreamer
+from musicfpaugment_torch.testing import dejavu_exps as dj_exps
 from musicfpaugment_torch.testing.audfprint_exps import (
     PEAKS_METRICS,
     compute_accuracy_batched,
@@ -1346,6 +1392,311 @@ def streamer_phase(dev) -> dict:
     return line
 
 
+# ------------------------------------------------------------------ Dejavu
+
+DJ_SETTINGS = afp_settings["dejavu"]  # the paper's: 8 kHz, n_fft 512, hop 256, fan 3, amp_min 50
+DJ_INGEST_BATCH = 256
+DJ_ORACLE_TRACKS = 256
+DJ_ORACLE_QUERIES = 128
+DJ_DEMUCS_QUERIES = 32
+DJ_UNET_CPU_QUERIES = 16
+MIN_DJ_VERDICTS_CARD_VS_CPU = 126  # of a batch of 128
+
+
+def dj_masks(waves: torch.Tensor, denoiser=None) -> torch.Tensor:
+    st = DJ_SETTINGS
+    return fingerprint_spectrogram_batch(
+        waves, st["samplerate"], st["n_fft"], st["n_hop"], st["amp_min"], denoiser=denoiser
+    )[1]
+
+
+def dj_max_peaks(n_frames: int) -> int:
+    """The matcher's default peak budget: 4 a frame, rounded up to a power
+    of two."""
+    return 1 << math.ceil(math.log2(4 * n_frames))
+
+
+def dj_song(verdict):
+    """The song a recognizer verdict names, or None (NOMATCH)."""
+    return verdict["results"][0]["song_name"].decode() if verdict["match"] else None
+
+
+def dj_recognize(dm, queries) -> tuple:
+    """(verdicts, seconds) of ``recognize_waveforms`` over ``queries`` (a
+    (N, T) tensor or a list of (T,) tensors) in batches of QUERY_BATCH."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = []
+    for s in range(0, len(queries), QUERY_BATCH):
+        chunk = queries[s : s + QUERY_BATCH]
+        out += dm.recognize_waveforms(chunk if isinstance(chunk, torch.Tensor) else torch.stack(chunk))
+    return out, time.perf_counter() - t0
+
+
+def dj_accuracy(verdicts, gts) -> float:
+    return sum(dj_song(v) == gt for v, gt in zip(verdicts, gts)) / len(gts)
+
+
+def dejavu_ingest_phase(dev, tracks, cut_secs, names):
+    """Phase 22: the corpus through ``DejavuDeviceIndex.ingest_arrays`` in
+    batches of DJ_INGEST_BATCH tracks of one length (each track cut to
+    ``cut_secs`` whole seconds; zero padding would move the per-track mean
+    and so the peaks), then ``finalize`` and the matcher's upload.
+    Returns (index, matcher, line)."""
+    idx = DejavuDeviceIndex()
+    batches = []
+    for sec in np.unique(cut_secs):
+        ids = np.nonzero(cut_secs == sec)[0]
+        batches += [ids[s : s + DJ_INGEST_BATCH] for s in range(0, len(ids), DJ_INGEST_BATCH)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for ids in batches:
+        n = int(cut_secs[ids[0]]) * SR
+        idx.ingest_arrays([names[i] for i in ids], torch.stack([tracks[i][:n] for i in ids]),
+                          DJ_SETTINGS, device=dev)
+    ingest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    starts, rows, nbuckets, depth = idx.finalize()
+    finalize_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dm = DejavuDeviceMatcher(idx, DJ_SETTINGS, device=dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    line = {
+        "phase": "dejavu_ingest", "tracks": len(names), "batches": len(batches),
+        "lengths_s": sorted(int(s) for s in np.unique(cut_secs)),
+        "ingest_s": ingest_s, "finalize_s": finalize_s, "upload_s": upload_s,
+        "tracks_per_s": len(names) / (ingest_s + finalize_s + upload_s),
+        "tracks_per_s_ingest_arrays_alone": len(names) / ingest_s,
+        "rows": int(rows.shape[0]), "nbuckets": nbuckets, "bucket_depth": depth,
+        "rows_dropped": idx.rows_dropped, "max_rows_per_hash": idx.max_rows_per_hash,
+        "csr_bytes_on_card": dm.index_bytes(), "host_finalize_share":
+        finalize_s / (ingest_s + finalize_s + upload_s),
+        "hashes_per_track_mean": float(np.mean(idx.total_hashes)),
+    }
+    return idx, dm, line
+
+
+def dejavu_oracle_phase(dev, tracks, cut_secs, names, oracle_queries, gts, tids):
+    """Phase 25: one set of card masks for the DJ_ORACLE_TRACKS tracks
+    ``tids`` and the queries, fed to the host path (``peaks_from_mask`` ->
+    ``generate_hashes`` -> SQLite -> ``find_matches`` -> ``align_matches``)
+    and to the device path (``pack_hashes_from_masks`` ->
+    ``_dejavu_match_impl`` through ``match_packed``): every field of every
+    verdict must be equal. Returns (the SQLite-backed Dejavu, line)."""
+    st = DJ_SETTINGS
+    t0 = time.perf_counter()
+    track_masks = {}
+    for sec in np.unique(cut_secs[tids]):
+        ids = [t for t in tids if cut_secs[t] == sec]
+        for t, m in zip(ids, dj_masks(torch.stack([tracks[t][: int(sec) * SR] for t in ids]))):
+            track_masks[t] = m
+    q_masks = dj_masks(torch.stack(oracle_queries))
+    torch.cuda.synchronize()
+    masks_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    djv = Dejavu({}, st, db=SQLiteDatabase(":memory:"), device=dev)
+    for t in tids:
+        hashes = set(generate_hashes(peaks_from_mask(track_masks[t].cpu().numpy()), st["fan_value"]))
+        sid = djv.db.insert_song(names[t], "", len(hashes))
+        djv.db.insert_hashes(sid, list(hashes))
+        djv.db.set_song_fingerprinted(sid)
+    host = []
+    for m in q_masks.cpu().numpy():
+        hashes = set(generate_hashes(peaks_from_mask(m), st["fan_value"]))
+        matches, dedup, _ = djv.find_matches(hashes)
+        host.append(djv.align_matches(matches, dedup, len(hashes)))
+    host_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    idx = DejavuDeviceIndex()
+    for t in tids:
+        C = track_masks[t].shape[-1]
+        keys, t1, valid, *_ = pack_hashes_from_masks(track_masks[t][None], dj_max_peaks(C), st["fan_value"])
+        idx.add_song(names[t], zip(keys[valid].tolist(), t1[valid].tolist()))
+    dm = DejavuDeviceMatcher(idx, st, device=dev)
+    C = q_masks.shape[-1]
+    device = dm.match_packed(
+        pack_hashes_from_masks(q_masks, dj_max_peaks(C), st["fan_value"]), C)
+    device_s = time.perf_counter() - t0
+
+    mismatched = []
+    for i, (h, d) in enumerate(zip(host, device)):
+        want = dict(h[0], song_id=h[0]["song_id"] - 1) if h else {}  # SQLite counts from 1
+        if d != want:
+            mismatched.append({"query": i, "host": repr(want), "device": repr(d)})
+    line = {
+        "phase": "dejavu_oracle", "tracks": len(tids), "queries": len(oracle_queries),
+        "query_sets": "first half clean, second half default_parameters",
+        "verdicts_compared": len(host), "host_nonempty": sum(bool(h) for h in host),
+        "fields_compared": sorted(device[0]) if device and device[0] else [],
+        "mismatched": len(mismatched), "first_mismatches": mismatched[:3],
+        "accuracy_device": dj_accuracy(
+            [{"match": bool(d), "results": [d]} for d in device], gts),
+        "masks_s": masks_s, "host_path_s": host_s, "device_path_s": device_s,
+        "sqlite_fingerprints": djv.db.get_num_fingerprints(),
+    }
+    emit(line)
+    if mismatched:
+        fail(f"dejavu_oracle: {len(mismatched)} verdicts differ between align_matches and the "
+             f"device matcher, first {mismatched[0]}")
+    return djv, line
+
+
+def dejavu_phases(dev, tracks, lengths, names, queries, q_ids, q_offs, unseen, augmented_host,
+                  q_paths, cleans_dir, tmp) -> dict:
+    """Phases 22-29, Dejavu at the paper's settings on the script's corpus
+    and queries: ingest, match, conditions, oracle, card against CPU, the
+    two denoiser arms, the peak metrics and a profile. Returns the line of
+    seconds and launches."""
+    t_start = time.perf_counter()
+    cut_secs = lengths // SR
+    crops_past_cut = int(sum(int(o) + QUERY_SECONDS * SR > int(cut_secs[t]) * SR
+                             for t, o in zip(q_ids, q_offs)))
+    idx, dm, ingest_line = dejavu_ingest_phase(dev, tracks, cut_secs, names)
+    ingest_line["crops_past_cut"] = crops_past_cut
+    ing_ids = np.nonzero(cut_secs == cut_secs[0])[0][:DJ_INGEST_BATCH]
+    ing_batch = torch.stack([tracks[i][: int(cut_secs[0]) * SR] for i in ing_ids])
+    ingest_line["profile_one_batch"] = profile_call(
+        f"ingest_arrays, {len(ing_ids)} x {int(cut_secs[0])} s",
+        lambda: DejavuDeviceIndex().ingest_arrays(list(map(str, ing_ids)), ing_batch, DJ_SETTINGS,
+                                                  device=dev))
+    busy = ingest_line["profile_one_batch"]["busy_share"]
+    ingest_line["host_share"] = (
+        ingest_line["finalize_s"] + ingest_line["ingest_s"] * (1 - min(busy, 1.0))
+    ) / (ingest_line["ingest_s"] + ingest_line["finalize_s"] + ingest_line["upload_s"])
+    emit(ingest_line)
+
+    # ---- 23. match: the 1,024 clean crops and the 128 unseen ones
+    gts = [names[int(t)] for t in q_ids]
+    verdicts, match_s = dj_recognize(dm, queries)
+    accuracy = dj_accuracy(verdicts, gts)
+    unseen_v, unseen_s = dj_recognize(dm, unseen)
+    emit({"phase": "dejavu_match", "queries": len(queries), "batch": QUERY_BATCH,
+          "accuracy": accuracy, "seconds": match_s, "queries_per_s": len(queries) / match_s,
+          "crops_past_cut": crops_past_cut, "unseen_queries": len(unseen),
+          "unseen_nomatch_rate_not_held": sum(not v["match"] for v in unseen_v) / len(unseen),
+          "unseen_queries_per_s": len(unseen) / unseen_s})
+    if accuracy < MIN_CLEAN_ACCURACY:
+        fail(f"dejavu clean accuracy {accuracy} < {MIN_CLEAN_ACCURACY}")
+
+    # ---- 24. conditions: the augmented queries of phase 7
+    conditions = {"cleans": {"accuracy": accuracy, "queries_per_s": len(queries) / match_s}}
+    for cond, out in augmented_host.items():
+        v, s = dj_recognize(dm, out.to(dev))
+        conditions[cond] = {"accuracy": dj_accuracy(v, gts), "queries_per_s": len(gts) / s}
+    emit({"phase": "dejavu_conditions", "queries": len(queries), "conditions": conditions})
+
+    # ---- 25. oracle: the host SQLite path against the device path
+    aug_default = augmented_host["default_parameters"]
+    half = DJ_ORACLE_QUERIES // 2
+    oracle_queries = list(queries[:half]) + [aug_default[i].to(dev) for i in range(half, 2 * half)]
+    oracle_gts = gts[: 2 * half]
+    tids = list(dict.fromkeys(int(t) for t in q_ids[: 2 * half]))
+    have = set(tids)
+    tids += [t for t in range(len(names)) if t not in have][: DJ_ORACLE_TRACKS - len(tids)]
+    oracle_djv, _ = dejavu_oracle_phase(dev, tracks, cut_secs, names, oracle_queries, oracle_gts, tids)
+
+    # ---- 26. the card against the CPU on one batch, the same index
+    q_batch = torch.stack(queries[:QUERY_BATCH])
+    m_card, m_cpu = dj_masks(q_batch).cpu(), dj_masks(q_batch.cpu())
+    cpu_dm = DejavuDeviceMatcher(idx, DJ_SETTINGS, device="cpu")
+    t0 = time.perf_counter()
+    v_cpu = cpu_dm.recognize_waveforms(q_batch.cpu())
+    cpu_s = time.perf_counter() - t0
+    v_card = dm.recognize_waveforms(q_batch)
+    C = m_cpu.shape[-1]
+    packed = pack_hashes_from_masks(m_cpu, dj_max_peaks(C), DJ_SETTINGS["fan_value"])
+    kw = dm._match_kwargs(dm._effective_mqf(C))
+    on_cpu = dj_match_impl(cpu_dm._starts, cpu_dm._rows, *packed[:4], **kw)
+    on_card = dj_match_impl(dm._starts, dm._rows, *(p.to(dev) for p in packed[:4]), **kw)
+    impl_equal = all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu))
+    agreement = float((m_card == m_cpu).float().mean())
+    same_songs = sum(dj_song(a) == dj_song(b) for a, b in zip(v_card, v_cpu))
+    emit({"phase": "dejavu_card_vs_cpu", "queries": QUERY_BATCH, "mask_agreement": agreement,
+          "mask_peaks_card": int(m_card.sum()), "mask_peaks_cpu": int(m_cpu.sum()),
+          "verdict_songs_equal": same_songs, "verdicts_equal": v_card == v_cpu,
+          "match_impl_equal_on_same_hashes": impl_equal, "cpu_batch_s": cpu_s})
+    if agreement < MIN_MASK_AGREEMENT:
+        fail(f"dejavu masks on the card and the CPU agree in {agreement} of cells")
+    if same_songs < MIN_DJ_VERDICTS_CARD_VS_CPU:
+        fail(f"dejavu verdict songs on the card and the CPU agree in {same_songs} of {QUERY_BATCH}")
+    if not impl_equal:
+        fail("_dejavu_match_impl on the card differs from the CPU on the same hashes")
+    del cpu_dm
+
+    # ---- 27. denoised: the seeded UNet as spectrogram hook, the seeded
+    # Demucs as waveform hook
+    dirs = {}
+    for label, qs in (("cleans", queries[:DENOISED_QUERIES]),
+                      ("default_parameters", aug_default[:DENOISED_QUERIES])):
+        dirs[label] = os.path.join(tmp, f"dejavu_{label}")
+        os.mkdir(dirs[label])
+        for i, q in enumerate(qs):  # the file's stem is the ground truth
+            np.save(os.path.join(dirs[label], f"{gts[i]}.{i:04d}.npy"), q.cpu().numpy())
+    unet = seeded_unet(UNET_SEED)
+    unet_hook = unet_denoiser(copy.deepcopy(unet).to(dev))
+    dm_unet = DejavuDeviceMatcher(idx, DJ_SETTINGS, spec_denoiser=unet_hook, device=dev)
+    dm_unet.match_waveforms(q_batch[:8])  # cuDNN's first choice of algorithms
+    unet_sets = {}
+    for label, d in dirs.items():
+        files = [os.path.join(d, f) for f in sorted(os.listdir(d))]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc = dj_exps.compute_accuracy_batched(files, dm, dm_unet, batch_size=QUERY_BATCH)
+        unet_sets[label] = {"accuracy": acc,
+                            "queries_per_s": len(files) / (time.perf_counter() - t0)}
+    few = aug_default[:DJ_UNET_CPU_QUERIES]
+    t0 = time.perf_counter()
+    m_few_cpu = dj_masks(few, denoiser=unet_denoiser(unet))
+    unet_cpu_s = time.perf_counter() - t0
+    unet_agreement = float((dj_masks(few.to(dev), denoiser=unet_hook).cpu() == m_few_cpu).float().mean())
+    del unet
+    demucs = seeded_demucs(DEMUCS_SEED).to(dev)
+    demucs_hook = demucs_denoiser(demucs)
+    djv_demucs = Dejavu({}, DJ_SETTINGS, db=oracle_djv.db, denoising=True, denoising_model="demucs",
+                        wave_denoiser=demucs_hook, device=dev)
+    demucs_dir = os.path.join(tmp, "dejavu_oracle_queries")
+    os.mkdir(demucs_dir)
+    for i in range(DJ_DEMUCS_QUERIES):  # half clean, half default_parameters
+        j = i if i < DJ_DEMUCS_QUERIES // 2 else half + i
+        np.save(os.path.join(demucs_dir, f"{oracle_gts[j]}.{j:04d}.npy"), oracle_queries[j].cpu().numpy())
+    files = [os.path.join(demucs_dir, f) for f in sorted(os.listdir(demucs_dir))]
+    t0 = time.perf_counter()
+    demucs_acc = dj_exps.compute_accuracy(files, oracle_djv, djv_demucs)
+    demucs_qps = len(files) / (time.perf_counter() - t0)
+    emit({"phase": "dejavu_denoised", "unet": "base=64, seeded", "demucs": "published, seeded",
+          "unet_sets": unet_sets, "unet_card_vs_cpu_mask_agreement": unet_agreement,
+          "unet_card_vs_cpu_queries": DJ_UNET_CPU_QUERIES, "unet_cpu_masks_s": unet_cpu_s,
+          "demucs_per_file_queries": len(files), "demucs_corpus_tracks": DJ_ORACLE_TRACKS,
+          "demucs_accuracy": demucs_acc, "demucs_queries_per_s": demucs_qps})
+    for label, row in list(unet_sets.items()) + [("demucs", {"accuracy": demucs_acc})]:
+        if set(row["accuracy"]) != {"No Denoising", "With Denoising", "Mix Pipeline"}:
+            fail(f"dejavu_denoised {label}: accuracies {sorted(row['accuracy'])}")
+    if unet_agreement < MIN_MASK_AGREEMENT:
+        fail(f"dejavu UNet-denoised masks on the card and the CPU agree in {unet_agreement} of cells")
+
+    # ---- 28. peak metrics of phase 12's .npy pairs, both arms
+    djv_plain = Dejavu({}, DJ_SETTINGS, db=SQLiteDatabase(":memory:"), device=dev)
+    peaks = {}
+    for label, kw in (("unet", {"spec_denoiser": unet_hook}), ("demucs", {"wave_denoiser": demucs_hook})):
+        den = Dejavu({}, DJ_SETTINGS, db=djv_plain.db, denoising=True, denoising_model=label,
+                     device=dev, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = dj_exps.compute_peaks_metrics_batched(q_paths, djv_plain, den, cleans_path=cleans_dir)
+        peaks[label] = {"metrics": metrics, "queries_per_s": len(q_paths) / (time.perf_counter() - t0)}
+        if set(metrics) != set(dj_exps.PEAKS_METRICS) or not all(map(math.isfinite, metrics.values())):
+            fail(f"dejavu peak metrics ({label}) missing or not finite: {metrics}")
+    emit({"phase": "dejavu_peaks_metrics", "queries": len(q_paths), "arms": peaks})
+    del demucs, demucs_hook, unet_hook, dm_unet
+
+    # ---- 29. where the time of a match batch goes
+    emit(profile_call("dejavu match_waveforms, 128 queries", lambda: dm.match_waveforms(q_batch)))
+    return {"phase": "dejavu_phases", "seconds": time.perf_counter() - t_start}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -1566,6 +1917,7 @@ def main() -> None:
         if n <= 0:
             fail(f"{k} kernel did not launch while the conditions were identified")
     aug_default = augmented["default_parameters"][:DENOISED_QUERIES].clone()
+    augmented_host = {cond: out.cpu() for cond, out in augmented.items()}  # for Dejavu
     del augmented
 
     # ---- 9. where the time goes: one match batch, one ingest batch, one
@@ -1715,9 +2067,19 @@ def main() -> None:
                                         analyzer, queries, aug_default, den_names, q_paths, cleans_dir)
     del trained_demucs
     ckpt_dir.cleanup()
-    tmp_dir.cleanup()
     streamer_phase(dev)
     emit({"phase": "demucs_phases", "seconds": time.perf_counter() - t_demucs})
+
+    # ---- 22-29. Dejavu, whose path reaches no prune kernel
+    prune_before = dict(K.LAUNCHES)
+    dj_line = dejavu_phases(dev, tracks, lengths, names, queries, q_ids, q_offs, unseen,
+                            augmented_host, q_paths, cleans_dir, tmp)
+    dj_line.update(prune_launches_before=prune_before, prune_launches_after=dict(K.LAUNCHES))
+    emit(dj_line)
+    if dj_line["prune_launches_after"] != prune_before:
+        fail(f"the Dejavu phases launched a prune kernel: {prune_before} -> {dict(K.LAUNCHES)}")
+    del augmented_host
+    tmp_dir.cleanup()
 
     kernels = []
     for kname, line in (("forward_prune", 60), ("backward_prune", 113)):

@@ -1,5 +1,5 @@
 """Evaluation configuration: query directories for the 11 conditions, the
-audfprint engine settings, the database location and the 10 per-condition
+audfprint and dejavu engine settings, the database locations and the 10 per-condition
 AugmentFP parameter dicts used to synthesize degraded queries. Values are
 copied verbatim from musicfpaugment_tpu/testing/parameters.py so results are
 comparable; paths are overridable via environment variables."""
@@ -34,12 +34,30 @@ afp_settings = {
         "n_fft": 512,
         "n_hop": 256,
     },
+    "dejavu": {
+        "samplerate": 8000,
+        "n_fft": 512,
+        "n_hop": int(0.5 * 512),
+        # Degree to which a fingerprint can be paired with its neighbors —
+        # higher values cause more fingerprints but potentially better accuracy.
+        "fan_value": 3,
+        "amp_min": 50,
+        "peak_neighb_size": 10,
+    },
 }
 
 afp_db_paths = {
     "audfprint": os.environ.get(
         "MFPA_AUDFPRINT_DB", "/workspace/afp/fp_database.npz"
     ),
+    "dejavu": {
+        "database": {
+            "host": os.environ.get("MFPA_DEJAVU_HOST", "db_fma"),
+            "user": "postgres",
+            "password": "password",
+            "database": "dejavu_fma",
+        },
+    },
 }
 
 

@@ -462,3 +462,86 @@ def test_streamer_and_resampler_on_card_match_cpu(cuda_device):
         assert outs[str(dev)].device.type == "cpu" and outs[str(dev)].shape[1] >= 3001
     want = outs["cpu"]
     assert float((outs["cuda"] - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+# ------------------------------------------------------------------ Dejavu
+
+
+def _dejavu_tracks(n, seconds, seed):
+    return next(synthetic_clean_batches(n, seconds * 8000, 8000, seed=seed))
+
+
+@pytest.mark.cuda
+def test_dejavu_masks_and_packing_on_card_match_cpu(cuda_device):
+    """Masks from the same log spectrogram and packed hashes from the same
+    masks bit-identical; masks from the same waveforms in >= 0.999 of
+    cells (cuFFT against the CPU's FFT)."""
+    import importlib
+
+    df = importlib.import_module("musicfpaugment_torch.afp.dejavu.fingerprint")
+    x = torch.from_numpy(_dejavu_tracks(4, 8, 91)) * 32767.0
+    logd, mask, sgram = df.fingerprint_spectrogram_batch(x)
+    c_logd, c_mask, c_sgram = df.fingerprint_spectrogram_batch(x.to(cuda_device))
+    assert float((c_sgram.cpu() - sgram).abs().max()) <= 1e-5 * float(sgram.abs().max())
+    assert (c_mask.cpu() == mask).float().mean() >= FROM_WAVEFORM_AGREEMENT
+    assert torch.equal(df.detect_peaks_mask(logd.to(cuda_device)).cpu(), mask)
+    plateaus = torch.round(logd / 8) * 8  # equal neighbours in a window
+    assert torch.equal(df.detect_peaks_mask(plateaus.to(cuda_device), amp_min=10).cpu(),
+                       df.detect_peaks_mask(plateaus, amp_min=10))
+    for max_peaks in (64, 1024):
+        got = df.pack_hashes_from_masks(mask.to(cuda_device), max_peaks)
+        want = df.pack_hashes_from_masks(mask, max_peaks)
+        for g, w in zip(got, want):
+            assert g.is_cuda and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_dejavu_match_on_card_matches_cpu(cuda_device):
+    import importlib
+
+    from musicfpaugment_torch.afp.dejavu import DejavuDeviceIndex, DejavuDeviceMatcher
+
+    dm_mod = importlib.import_module("musicfpaugment_torch.afp.dejavu.matcher_device")
+    df = importlib.import_module("musicfpaugment_torch.afp.dejavu.fingerprint")
+    tracks = _dejavu_tracks(12, 12, 92)
+    names = [f"t{i}" for i in range(12)]
+    idx, c_idx = DejavuDeviceIndex(), DejavuDeviceIndex()
+    idx.ingest_arrays(names, tracks, device="cpu")
+    c_idx.ingest_arrays(names, tracks, device=cuda_device)
+    for g, w in zip(c_idx.finalize(), idx.finalize()):
+        np.testing.assert_array_equal(g, w)
+    cpu, card = DejavuDeviceMatcher(idx, device="cpu"), DejavuDeviceMatcher(idx, device=cuda_device)
+    queries = np.stack([t[8000 * (1 + i % 3):][: 8 * 8000] for i, t in enumerate(tracks)])
+    _, masks, _ = df.fingerprint_spectrogram_batch(torch.from_numpy(queries))
+    packed = df.pack_hashes_from_masks(masks, 1024)
+    kw = cpu._match_kwargs(cpu._effective_mqf(masks.shape[-1]))
+    want = dm_mod._dejavu_match_impl(cpu._starts, cpu._rows, *packed[:4], **kw)
+    got = dm_mod._dejavu_match_impl(card._starts, card._rows, *(p.to(cuda_device) for p in packed[:4]), **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    c_v, v = card.recognize_waveforms(queries), cpu.recognize_waveforms(queries)
+    assert sum(a["results"][0]["song_name"] == b["results"][0]["song_name"]
+               for a, b in zip(c_v, v) if a["match"] and b["match"]) >= 11
+    assert all(r["match"] and r["results"][0]["song_name"].decode() == n for r, n in zip(c_v, names))
+
+
+@pytest.mark.cuda
+def test_dejavu_ties_on_card(cuda_device):
+    """The lower song id, then the lower offset, wins a tie on the card."""
+    import importlib
+
+    from musicfpaugment_torch.afp.dejavu import DejavuDeviceIndex, DejavuDeviceMatcher
+
+    dm_mod = importlib.import_module("musicfpaugment_torch.afp.dejavu.matcher_device")
+    k1, k2, k3 = (10 << 17) | (20 << 8) | 3, (30 << 17) | (40 << 8) | 5, (50 << 17) | (60 << 8) | 7
+    idx = DejavuDeviceIndex()
+    for i, hashes in enumerate([[(k1, 10), (k2, 20)], [(k1, 5), (k2, 15)], [(k3, 7), (k3, 9), (k1, 40)]]):
+        idx.add_song(f"s{i}", hashes)
+    dm = DejavuDeviceMatcher(idx, device=cuda_device)
+    keys = torch.tensor([[k1, k2, 1 << 30], [k3, 1 << 30, 1 << 30], [k1, 1 << 30, 1 << 30]],
+                        dtype=torch.int32, device=cuda_device)
+    t1 = torch.tensor([[0, 10, 0], [0, 0, 0], [3, 0, 0]], dtype=torch.int32, device=cuda_device)
+    valid = keys < (1 << 30)
+    out = dm_mod._dejavu_match_impl(dm._starts, dm._rows, keys, t1, valid, valid,
+                                    **dm._match_kwargs(dm._effective_mqf(16)))
+    assert [o.tolist() for o in out] == [[0, 2, 0], [2, 1, 1], [10, 7, 7], [2, 2, 1]]

@@ -150,7 +150,12 @@ def test_port_imports_no_jax_or_jax_package():
     scanned = {os.path.relpath(p, ROOT) for p in paths}
     for module in ("train/losses", "train/parameters", "train/utils", "train/trainer",
                    "train/train", "data/dataset", "data/dcase", "data/jamendo",
-                   "models/demucs", "models/streamer", "core/resample", "utils/profiling"):
+                   "models/demucs", "models/streamer", "core/resample", "utils/profiling",
+                   "afp/dejavu/__init__", "afp/dejavu/variables", "afp/dejavu/fingerprint",
+                   "afp/dejavu/database", "afp/dejavu/sqlite_database", "afp/dejavu/dejavu",
+                   "afp/dejavu/file_recognizer", "afp/dejavu/matcher_device",
+                   "afp/dejavu/postgres_database", "afp/dejavu/pglib", "afp/dejavu/pg_shim",
+                   "testing/dejavu_exps"):
         assert f"musicfpaugment_torch/{module}.py" in scanned, module
     for path in paths:
         for mod in _imports(path):
