@@ -4,9 +4,11 @@
 
 Drives the audfprint identification path of ``musicfpaugment_torch`` end to
 end on the card, clean and degraded queries, its two denoisers (the UNet on
-spectrograms, Demucs on waveforms) and their training, then the Dejavu path
-(the CSR index, the batched matcher, the SQLite oracle, both denoiser arms),
-through the entry points a user calls:
+spectrograms, Demucs on waveforms) and their training, the Dejavu path (the
+CSR index, the batched matcher, the SQLite oracle, both denoiser arms), then
+the FMA selection indexed and identified from audio files by both systems,
+the parallel layer, monitoring and the app, through the entry points a user
+calls:
 
 1. device  - the card's name and power limit;
 2. build   - compiles the CUDA kernels from ``musicfpaugment_torch/csrc``;
@@ -142,13 +144,41 @@ through the entry points a user calls:
 29. profile - one Dejavu ``match_waveforms`` batch of 128 under
              torch.profiler. The Dejavu path reaches no prune kernel: the
              launch counts must not move across phases 22-29.
+30. native_io - the g++ build of ``native/*.cc``, whether libmpg123 and
+             libmp3lame load, the codec's rate over the FMA tree's files and
+             ``read_wav_batch``'s decode rate over them;
+31. fma_eval - an FMA tree in a temporary directory: ``tracks.csv`` in
+             FMA's layout (16 genres x 512 tracks of 30 s), every track's
+             path as the path list, and the first 512 selected tracks written
+             as 30 s synthetic files at 22.05 kHz (mp3; WAV where a codec is
+             missing); then through the entry points the preprocessing
+             ``main``, ``audfprint_exps.main(["--action", "index"])`` into a
+             full 2^20 x 100 table, ``dejavu_exps.main(["--action",
+             "index"])`` into SQLite, ``generate_queries.main(["--queries",
+             "cleans", "--save"])`` (absent files skipped), and the saved
+             clean queries identified by both systems (accuracy >= 0.99);
+             index and identification rates, the decode share; prune
+             counters zeroed before the index and the identification;
+32. parallel - an NCCL group of world size 1: the published UNet trained 3
+             steps with and without ``DistributedDataParallel`` from one seed
+             (losses within 1e-6), ``ShardedAugmenter`` over ``[cuda:0,
+             cuda:0]`` against ``apply`` on the whole batch and both matchers
+             on that mesh against one card (256 queries): bit for bit;
+33. monitoring - the train phase's float32 checkpoint resumed with
+             ``monitoring``: ``_log_tensorboard`` and ``_log_media`` through a
+             ``SummaryWriter`` (a recording writer without tensorboard), the
+             CQT loss at 128 x 3 s (card against CPU 1e-5) and
+             ``generate_audios.main`` on the checkpoint;
+34. app     - the demo app's ``define_model`` with a stand-in panel and
+             ``process_audio`` of 4 x 8 s at 16 kHz on the card.
 
 Every phase prints a JSON line. Launch counters are zeroed just before
 ingest and read after match: both kernels must have launched in each (once
 per ingest batch, once per match batch whatever the number of shifts). They
 are zeroed again before the augmented conditions, before the denoised
-accuracies, before the peak metrics, before the trained-denoiser runs and
-before each Demucs-denoised run, and read after each.
+accuracies, before the peak metrics, before the trained-denoiser runs,
+before each Demucs-denoised run, before the FMA index, before the FMA
+identification and before the mesh match, and read after each.
 The line before the last is the kernel table, the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
 
@@ -161,9 +191,12 @@ readings at the other two shapes.
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import contextlib
 import copy
 import functools
+import glob
+import io
 import json
 import math
 import os
@@ -195,17 +228,25 @@ from musicfpaugment_torch.afp.dejavu import (
 )
 from musicfpaugment_torch.afp.dejavu.fingerprint import peaks_from_mask
 from musicfpaugment_torch.afp.dejavu.matcher_device import _dejavu_match_impl as dj_match_impl
+from musicfpaugment_torch.apps import streamlit_app
 from musicfpaugment_torch.augment import AugmentFP, dcase_shaped_banks
 from musicfpaugment_torch.augment import transforms as T
 from musicfpaugment_torch.convert import demucs_denoiser, unet_denoiser
 from musicfpaugment_torch.core import filters
 from musicfpaugment_torch.core import resample as RS
 from musicfpaugment_torch.core.convolve import fft_convolve
-from musicfpaugment_torch.data.synthetic import synth_tracks_device, synthetic_clean_batches
+from musicfpaugment_torch.data import mp3_encode, native
+from musicfpaugment_torch.data.synthetic import (
+    synth_tracks_device,
+    synthetic_clean_batches,
+    write_fma_tracks_csv,
+)
 from musicfpaugment_torch.device import cudnn_tf32
 from musicfpaugment_torch.models import Demucs, UNet, rescale_params
 from musicfpaugment_torch.models.demucs import STOP_AT
 from musicfpaugment_torch.models.streamer import DemucsStreamer
+from musicfpaugment_torch.parallel import ShardedAugmenter, init_multihost
+from musicfpaugment_torch.testing import audfprint_exps, fma_preprocessing, generate_queries
 from musicfpaugment_torch.testing import dejavu_exps as dj_exps
 from musicfpaugment_torch.testing.audfprint_exps import (
     PEAKS_METRICS,
@@ -214,9 +255,12 @@ from musicfpaugment_torch.testing.audfprint_exps import (
     create_fp_database,
 )
 from musicfpaugment_torch.testing.parameters import (
+    afp_db_paths,
     afp_settings,
+    queries_paths,
     test_pipelines_parameters,
 )
+from musicfpaugment_torch.train import cqt, generate_audios
 from musicfpaugment_torch.train import parameters as TP
 from musicfpaugment_torch.train.trainer import EarlyStopping, ReduceLROnPlateau, Trainer
 from musicfpaugment_torch.utils import StageTimer
@@ -1545,11 +1589,11 @@ def dejavu_oracle_phase(dev, tracks, cut_secs, names, oracle_queries, gts, tids)
 
 
 def dejavu_phases(dev, tracks, lengths, names, queries, q_ids, q_offs, unseen, augmented_host,
-                  q_paths, cleans_dir, tmp) -> dict:
+                  q_paths, cleans_dir, tmp) -> tuple:
     """Phases 22-29, Dejavu at the paper's settings on the script's corpus
     and queries: ingest, match, conditions, oracle, card against CPU, the
     two denoiser arms, the peak metrics and a profile. Returns the line of
-    seconds and launches."""
+    seconds and the index."""
     t_start = time.perf_counter()
     cut_secs = lengths // SR
     crops_past_cut = int(sum(int(o) + QUERY_SECONDS * SR > int(cut_secs[t]) * SR
@@ -1694,7 +1738,503 @@ def dejavu_phases(dev, tracks, lengths, names, queries, q_ids, q_offs, unseen, a
 
     # ---- 29. where the time of a match batch goes
     emit(profile_call("dejavu match_waveforms, 128 queries", lambda: dm.match_waveforms(q_batch)))
-    return {"phase": "dejavu_phases", "seconds": time.perf_counter() - t_start}
+    return {"phase": "dejavu_phases", "seconds": time.perf_counter() - t_start}, idx
+
+
+# ---- 30-34. the last slice: mp3 corpora and the FMA selection, the parallel
+# layer, monitoring and the CQT loss, the demo CLI, the app
+
+FMA_GENRES = (
+    "Electronic", "Experimental", "Rock", "Hip-Hop", "Folk", "Instrumental", "Pop",
+    "International", "Classical", "Old-Time / Historic", "Jazz", "Country", "Soul-RnB",
+    "Spoken", "Blues", "Easy Listening",
+)
+FMA_TRACKS_PER_GENRE = 512  # 8,192 rows: every genre kept (< 900), all six exceptions popped
+FMA_WRITTEN = 512  # K: the first selected tracks, written as files (the rest are absent)
+FMA_SR = 22050  # libmp3lame's 128 kbit/s, as tests/make_mp3_fixture.py encodes
+FMA_SECONDS = 30  # FMA-large's clips
+FMA_SEED = 2024
+CODEC_THREADS = 8
+MIN_FMA_ACCURACY = 0.99
+PARALLEL_STEPS = 3
+MAX_DDP_LOSS_DIFF = 1e-6
+MESH_QUERIES = 256
+CQT_BATCH = 128
+CQT_CPU_EXAMPLES = 8
+MAX_CQT_CARD_VS_CPU = 1e-5
+APP_BATCH, APP_SECONDS, APP_SR, APP_SEED = 4, 8, 16000, 16
+
+
+@contextlib.contextmanager
+def environment(**values):
+    """``os.environ`` with ``values`` set inside the block."""
+    before = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def quietly(fn):
+    """``fn()`` with its standard output kept (an entry point prints a line
+    per file it skips): (result, seconds, output). The output goes to
+    standard error if ``fn`` raises."""
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        torch.cuda.synchronize()
+    except BaseException:
+        print(buf.getvalue()[-4000:], file=sys.stderr)
+        raise
+    return out, time.perf_counter() - t0, buf.getvalue()
+
+
+def native_io_phase() -> dict:
+    """Phase 30, part one: the g++ build of ``native/*.cc`` and whether the
+    codecs load. Fails if the library does not build."""
+    t0 = time.perf_counter()
+    try:
+        lib = native.build()
+        native.library()
+        mp3_dec = native.mp3_available()
+    except (RuntimeError, OSError) as e:
+        fail(f"the native decoders did not build or load: {e}")
+    line = {"phase": "native_io", "build_seconds": time.perf_counter() - t0, "library": lib,
+            "libmpg123": mp3_dec, "libmp3lame": mp3_encode.available(),
+            "libmp3lame_error": mp3_encode.load_error()}
+    line["mp3"] = line["libmpg123"] and line["libmp3lame"]
+    if not line["mp3"]:
+        line["mp3_reason"] = ("libmpg123.so.0 did not load" if not mp3_dec
+                              else f"libmp3lame did not load: {line['libmp3lame_error']}")
+    return line
+
+
+def write_fma_tree(dev, root: str, use_mp3: bool) -> dict:
+    """An FMA tree under ``root``: ``fma_metadata/tracks.csv`` in FMA's
+    layout (16 genres x 512 tracks of 30 s, shuffled), the list of every
+    track's path as the dataset's ``fma_large_preprocessed.txt``, the
+    preprocessing ``main`` (through its entry point), then the first
+    FMA_WRITTEN selected tracks (in the table's order) written as files: synthetic 30 s
+    tracks at 22.05 kHz, mp3 (or WAV where a codec is missing) encoded on
+    CODEC_THREADS threads. Returns the line's set-up numbers."""
+    fma, dataset = os.path.join(root, "fma"), os.path.join(root, "dataset")
+    os.makedirs(os.path.join(fma, "fma_metadata"))
+    os.makedirs(dataset)
+    rng = np.random.default_rng(FMA_SEED)
+    n = len(FMA_GENRES) * FMA_TRACKS_PER_GENRE
+    tids = rng.choice(np.arange(2, 160_000), size=n, replace=False)
+    genres = np.repeat(FMA_GENRES, FMA_TRACKS_PER_GENRE)[rng.permutation(n)]
+    write_fma_tracks_csv(os.path.join(fma, "fma_metadata", "tracks.csv"), tids, genres,
+                         [FMA_SECONDS] * n)
+    with open(os.path.join(dataset, "fma_large_preprocessed.txt"), "w") as fh:
+        fh.write("\n".join(fma_preprocessing.track_id_to_path(t) for t in tids) + "\n")
+    t0 = time.perf_counter()
+    fma_preprocessing.main()
+    preprocess_s = time.perf_counter() - t0
+    table = fma_preprocessing.preprocessed_table()
+    ts = fma_preprocessing.TestSet(table)
+    ts.remove_short_tracks()
+    selected = ts.remove_exceptions(ts.sample_queries())
+    if len(selected) != n - len(fma_preprocessing.EXCEPTION_POSITIONS):
+        fail(f"the FMA selection has {len(selected)} tracks, not {n - 6}")
+    # the first selected tracks in the table's order, so that the index's
+    # batches of 64 paths hold them together
+    chosen = set(selected)
+    written = [p for p in table["file_paths"] if p in chosen][:FMA_WRITTEN]
+
+    def encode(args):
+        path, x = args
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        if use_mp3:
+            mp3_encode.encode_mp3(x, path, FMA_SR)
+        else:
+            import scipy.io.wavfile
+
+            scipy.io.wavfile.write(path, FMA_SR, (np.clip(x, -1, 1) * 32767).astype(np.int16))
+
+    synth_s = encode_s = 0.0
+    with cf.ThreadPoolExecutor(CODEC_THREADS) as pool:
+        for s in range(0, len(written), 64):
+            t0 = time.perf_counter()
+            block = synth_tracks_device(FMA_SEED, range(s, s + 64), FMA_SECONDS * FMA_SR, FMA_SR,
+                                        device=dev)
+            block = (0.8 * block).cpu().numpy()
+            t1 = time.perf_counter()
+            list(pool.map(encode, zip(written[s : s + 64], block)))
+            synth_s += t1 - t0
+            encode_s += time.perf_counter() - t1
+    sizes = [os.path.getsize(p) for p in written]
+    return {"fma_root": fma, "dataset": dataset, "metadata_rows": n, "selected": len(selected),
+            "written": written, "preprocess_main_s": preprocess_s, "synth_s": synth_s,
+            "encode_s": encode_s, "encode_tracks_per_s": len(written) / encode_s,
+            "encode_x_realtime": len(written) * FMA_SECONDS / encode_s,
+            "bytes_per_track": float(np.mean(sizes))}
+
+
+def fma_eval_phase(dev, tmp: str, io_line: dict) -> dict:
+    """Phases 30 and 31, the slice's main path at full width: the FMA tree
+    (``write_fma_tree``), the threaded batch decoder over its files, then
+    through the entry points the audfprint ``--action index`` (the full
+    2^20 x 100 table), the Dejavu ``--action index`` (the paper's settings,
+    SQLite), ``--queries cleans --save`` (the selection's missing files are
+    skipped), and the saved clean queries identified by both systems:
+    accuracy >= 0.99. The prune counters are zeroed before the index and
+    before the identification and read after each."""
+    use_mp3 = io_line["mp3"]
+    root = os.path.join(tmp, "fma_eval")
+    os.makedirs(root)
+    ext = ".mp3" if use_mp3 else ".wav"
+    to_path = fma_preprocessing.track_id_to_path
+    if not use_mp3:  # the same tree as WAV files
+        fma_preprocessing.track_id_to_path = lambda t: to_path(t)[:-4] + ext
+    cwd = os.getcwd()
+    db_path = os.path.join(root, "fp_database.npz")
+    cleans = os.path.join(root, "queries", "cleans")
+    saved = (afp_db_paths["audfprint"], queries_paths["cleans"])
+    try:
+        with environment(MFPA_FMA_ROOT=os.path.join(root, "fma"),
+                         MFPA_DATASET_DIR=os.path.join(root, "dataset")):
+            tree = write_fma_tree(dev, root, use_mp3)
+            files = tree.pop("written")
+            t0 = time.perf_counter()
+            decoded = native.read_wav_batch(files, num_threads=CODEC_THREADS)
+            decode_s = time.perf_counter() - t0
+            if any(d is None for d in decoded):
+                fail("read_wav_batch failed on a written file")
+            samples = sum(int(d[0].shape[1]) for d in decoded)
+            del decoded
+            io_line.update({k: tree[k] for k in ("encode_s", "encode_tracks_per_s",
+                                                 "encode_x_realtime", "bytes_per_track")})
+            io_line.update({"decode_files": len(files), "decode_threads": CODEC_THREADS,
+                            "decode_s": decode_s, "decode_files_per_s": len(files) / decode_s,
+                            "decode_samples_per_s": samples / decode_s,
+                            "decode_x_realtime": samples / FMA_SR / decode_s, "format": ext})
+            emit(io_line)
+
+            os.chdir(root)  # the Dejavu database is the working directory's ./dejavu_fma
+            afp_db_paths["audfprint"] = db_path
+            queries_paths["cleans"] = cleans
+            an = AudfprintPeaks(afp_settings["audfprint"], device=dev)
+            with cf.ThreadPoolExecutor(8) as pool:  # create_fp_database's decode pool alone
+                t0 = time.perf_counter()
+                list(pool.map(an._load, files))
+                decode_alone_s = time.perf_counter() - t0
+            K.reset_launch_counts()
+            _, index_s, index_out = quietly(
+                lambda: audfprint_exps.main(["--action", "index", "--device", str(dev)]))
+            launches_index = dict(K.LAUNCHES)
+            _, dj_index_s, dj_out = quietly(
+                lambda: dj_exps.main(["--action", "index", "--device", str(dev)]))
+            if dict(K.LAUNCHES) != launches_index:
+                fail("the Dejavu index launched a prune kernel")
+            _, queries_s, q_out = quietly(
+                lambda: generate_queries.main(["--queries", "cleans", "--save"]))
+            q_files = sorted(glob.glob(os.path.join(cleans, "*.pkl")))
+
+            ht = HashTable(db_path)
+            dm = DeviceMatcher(ht, device=dev)
+            K.reset_launch_counts()
+            acc, ident_s, _ = quietly(lambda: compute_accuracy_batched(
+                q_files, ht, an, batch_size=QUERY_BATCH, shifts=SHIFTS, device_matcher=dm,
+                device=dev))
+            launches_ident = dict(K.LAUNCHES)
+            djv = Dejavu(afp_db_paths["dejavu"], DJ_SETTINGS, "set", device=dev)
+            dj_acc, dj_ident_s, _ = quietly(lambda: dj_exps.compute_accuracy(q_files, djv, djv))
+            n_songs = len(djv.db.get_songs())
+    finally:
+        os.chdir(cwd)
+        afp_db_paths["audfprint"], queries_paths["cleans"] = saved
+        fma_preprocessing.track_id_to_path = to_path
+    line = {
+        "phase": "fma_eval", "format": ext, "metadata_rows": tree["metadata_rows"],
+        "selected": tree["selected"], "files_written": len(files),
+        "track_seconds": FMA_SECONDS, "sample_rate": FMA_SR,
+        "synth_s": tree["synth_s"], "preprocess_main_s": tree["preprocess_main_s"],
+        "audfprint_index": {
+            "seconds": index_s, "tracks_per_s": len(files) / index_s,
+            "tracks_indexed": len(ht.names), "paths_skipped": index_out.count("error with"),
+            "decode_alone_s": decode_alone_s, "decode_share": decode_alone_s / index_s,
+            "total_hashes": ht.totalhashes(), "table": [int(1 << ht.hashbits), int(ht.depth)],
+            "launches": launches_index},
+        "dejavu_index": {
+            "seconds": dj_index_s, "tracks_per_s": len(files) / dj_index_s, "songs": n_songs,
+            "paths_skipped": dj_out.count("Failed fingerprinting")},
+        "clean_queries": {"seconds": queries_s, "written": len(q_files),
+                          "missing_skipped": q_out.count("A file is missing")},
+        "audfprint_identify": {"accuracy": acc["No Denoising"], "queries": len(q_files),
+                               "seconds": ident_s, "queries_per_s": len(q_files) / ident_s,
+                               "shifts": SHIFTS, "launches": launches_ident},
+        "dejavu_identify": {"accuracy": dj_acc["No Denoising"], "queries": len(q_files),
+                            "seconds": dj_ident_s, "queries_per_s": len(q_files) / dj_ident_s,
+                            "path": "per file: FileRecognizer over SQLite"},
+    }
+    emit(line)
+    if len(ht.names) != len(files) or n_songs != len(files) or len(q_files) != len(files):
+        fail(f"fma_eval: {len(ht.names)} indexed, {n_songs} Dejavu songs, {len(q_files)} queries "
+             f"of {len(files)} files")
+    for system in ("audfprint_identify", "dejavu_identify"):
+        if line[system]["accuracy"] < MIN_FMA_ACCURACY:
+            fail(f"fma_eval: {system} accuracy {line[system]['accuracy']} < {MIN_FMA_ACCURACY}")
+    for k in K.LAUNCHES:
+        if launches_index[k] <= 0 or launches_ident[k] <= 0:
+            fail(f"{k} kernel did not launch in the FMA index and identification")
+    return {"index": launches_index, "identify": launches_ident}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_phase(dev, noise_bank, ir_bank, queries, ht, dm, dj_idx) -> dict:
+    """Phase 32: an NCCL group of world size 1 in this process; the
+    published UNet (base=64, float32, batch 128 x 3 s, default_parameters
+    augmentation on the card) for PARALLEL_STEPS steps without and with
+    ``DistributedDataParallel`` from one seed (losses within 1e-6);
+    ``ShardedAugmenter`` over ``[cuda:0, cuda:0]`` against ``apply`` on the
+    whole batch, and both matchers on that mesh against one device on
+    MESH_QUERIES queries: bit for bit. Returns the prune launches of the
+    mesh's audfprint call."""
+    params = test_pipelines_parameters["default_parameters"]
+    fp = AugmentFP(noise_bank, SR, parameters=params, impulse_response_dir=ir_bank, device=dev)
+    train_batches, _, _ = training_batches()
+    runs = {}
+    # both runs take cuDNN's deterministic algorithms, so that what differs
+    # is DDP's doing (the default ones read up to 5e-7 apart at step 3)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label in ("single", "ddp"):
+            if label == "ddp":
+                rank = init_multihost(f"tcp://127.0.0.1:{_free_port()}", world_size=1, rank=0,
+                                      device=dev)
+            torch.manual_seed(UNET_SEED)
+            with tempfile.TemporaryDirectory() as ckpt:
+                trainer = Trainer(UNet(1, 1, rate=0.05, base=64), iter(()), 1, iter(()), 1, TRAIN_LR,
+                                  2, ckpt, input_type="spec", augmenter=fp, device=dev)
+            losses, ms = [], []
+            for b in train_batches[:PARALLEL_STEPS]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(trainer.train_step(b)["loss"]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            runs[label] = {"losses": losses, "step_ms": ms,
+                           "module": type(trainer._train_model).__name__}
+            del trainer
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    import torch.distributed as dist
+
+    backend = dist.get_backend()
+    dist.destroy_process_group()
+    loss_diff = max(abs(a - b) for a, b in zip(runs["single"]["losses"], runs["ddp"]["losses"]))
+
+    mesh = [dev, dev]
+    clean = torch.stack(queries[:MESH_QUERIES])
+    sa = ShardedAugmenter(fp, mesh)
+    sharded = torch.cat(sa.batch_augment(clean, generator=torch.Generator().manual_seed(AUGMENT_SEED)))
+    whole = fp.apply(clean, fp.draw(MESH_QUERIES, clean.shape[-1],
+                                    torch.Generator().manual_seed(AUGMENT_SEED)))
+    aug_mismatch = int((sharded != whole).sum())
+    q = whole  # degraded queries for the matchers
+    single = dm.match_waveforms(q, shifts=SHIFTS)
+    K.reset_launch_counts()
+    meshed = DeviceMatcher(ht, device=dev, mesh=mesh)
+    t0 = time.perf_counter()
+    mesh_v = meshed.match_waveforms(q, shifts=SHIFTS)
+    mesh_s = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    dj_single = DejavuDeviceMatcher(dj_idx, DJ_SETTINGS, device=dev).match_waveforms(q)
+    dj_mesh = DejavuDeviceMatcher(dj_idx, DJ_SETTINGS, mesh=mesh).match_waveforms(q)
+    line = {
+        "phase": "parallel", "backend": backend, "world_size": 1, "rank": rank,
+        "unet": "base=64, rate 0.05, float32, cuDNN deterministic", "batch": TP.BATCH_SIZE,
+        "samples": TRAIN_SAMPLES,
+        "steps": PARALLEL_STEPS, "runs": runs, "max_loss_diff": loss_diff,
+        "ddp_overhead_ms": float(np.median(runs["ddp"]["step_ms"][1:])
+                                 - np.median(runs["single"]["step_ms"][1:])),
+        "mesh": [str(d) for d in mesh], "replicas": len(meshed._replicas),
+        "sharded_augment_examples": MESH_QUERIES, "sharded_augment_mismatched_cells": aug_mismatch,
+        "audfprint_mesh_equal": mesh_v == single, "audfprint_mesh_queries_per_s": MESH_QUERIES / mesh_s,
+        "dejavu_mesh_equal": dj_mesh == dj_single,
+        "mesh_matches": sum(v[0] == "MATCH" for v in mesh_v), "launches": launches,
+    }
+    emit(line)
+    if runs["ddp"]["module"] != "DistributedDataParallel" or runs["single"]["module"] != "UNet":
+        fail(f"parallel: trained through {runs['single']['module']} and {runs['ddp']['module']}")
+    if not loss_diff <= MAX_DDP_LOSS_DIFF:
+        fail(f"parallel: the DDP losses are {loss_diff} from the single-process ones")
+    if aug_mismatch or not line["audfprint_mesh_equal"] or not line["dejavu_mesh_equal"]:
+        fail(f"parallel: sharded results differ from one device: {aug_mismatch} augmented cells, "
+             f"audfprint {line['audfprint_mesh_equal']}, dejavu {line['dejavu_mesh_equal']}")
+    for k, n in launches.items():
+        if n <= 0:
+            fail(f"{k} kernel did not launch in the mesh match")
+    return launches
+
+
+class RecordingWriter:
+    """``SummaryWriter``'s three calls, recorded (where tensorboard does not
+    import)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def add_scalar(self, tag, value, step):
+        self.calls.append(("scalar", tag, float(value), step))
+
+    def add_audio(self, tag, clip, step, sample_rate):
+        self.calls.append(("audio", tag, np.asarray(clip), step))
+
+    def add_image(self, tag, img, step, dataformats):
+        self.calls.append(("image", tag, np.asarray(img), step))
+
+
+class TeeWriter(RecordingWriter):
+    """A ``SummaryWriter`` whose calls are also recorded, to be checked."""
+
+    def __init__(self, writer):
+        super().__init__()
+        self.writer = writer
+
+    def add_scalar(self, tag, value, step):
+        super().add_scalar(tag, value, step)
+        self.writer.add_scalar(tag, value, step)
+
+    def add_audio(self, tag, clip, step, sample_rate):
+        super().add_audio(tag, clip, step, sample_rate)
+        self.writer.add_audio(tag, clip, step, sample_rate=sample_rate)
+
+    def add_image(self, tag, img, step, dataformats):
+        super().add_image(tag, img, step, dataformats)
+        self.writer.add_image(tag, img, step, dataformats=dataformats)
+
+
+def monitoring_phase(dev, noise_bank, ir_bank, ckpt_root: str, tmp: str) -> None:
+    """Phase 33: the train phase's float32 checkpoint resumed by a
+    monitoring ``Trainer``: ``_log_tensorboard`` and ``_log_media`` (a
+    ``SummaryWriter`` where tensorboard imports, a recording writer
+    otherwise; the triplets must be finite, of the spectrogram's shape, at
+    most 1); ``multi_resolution_cqt_loss`` at 128 x 3 s (ms; the card
+    against the CPU on 8 examples, 1e-5); ``generate_audios.main`` on that
+    checkpoint: its wavs written."""
+    params = test_pipelines_parameters["default_parameters"]
+    fp = AugmentFP(noise_bank, SR, parameters=params, impulse_response_dir=ir_bank, device=dev)
+    _, val_batches, _ = training_batches()
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+
+        writer, kind = TeeWriter(SummaryWriter(os.path.join(tmp, "tb"))), "SummaryWriter"
+    except ImportError:
+        writer, kind = RecordingWriter(), "recording writer (tensorboard does not import)"
+    ckpt = os.path.join(ckpt_root, "float32")
+    trainer = Trainer(UNet(1, 1, rate=0.05, base=64), iter(()), 1, cycle(val_batches), 1, TRAIN_LR,
+                      TRAIN_EPOCHS + 1, ckpt, input_type="spec", augmenter=fp, monitoring=True,
+                      device=dev, writer=writer)
+    val, metrics = trainer.validation_epoch()
+    trainer._log_tensorboard(trainer.epoch_start, {"loss": val["loss"]}, val, metrics)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer._log_media(10)
+    media_s = time.perf_counter() - t0
+    images = [c for c in writer.calls if c[0] == "image"]
+    shape = (257, 1 + TRAIN_SAMPLES // 256, 1)
+    bad = [c[1] for c in images if c[2].shape != shape or not np.isfinite(c[2]).all()
+           or c[2].max() > 1.0 + 1e-6]
+    if hasattr(writer, "writer"):
+        writer.writer.close()
+    del trainer
+    torch.cuda.empty_cache()
+
+    x = torch.from_numpy(val_batches[0][:CQT_BATCH]).to(dev)
+    y = fp.apply(x, fp.draw(CQT_BATCH, x.shape[-1], torch.Generator().manual_seed(0)))
+    cqt_ms = gpu_ms(lambda: cqt.multi_resolution_cqt_loss(y, x), 3)
+    card = [float(v) for v in cqt.multi_resolution_cqt_loss(y[:CQT_CPU_EXAMPLES], x[:CQT_CPU_EXAMPLES])]
+    cpu = [float(v) for v in cqt.multi_resolution_cqt_loss(y[:CQT_CPU_EXAMPLES].cpu(),
+                                                           x[:CQT_CPU_EXAMPLES].cpu())]
+    cqt_err = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    mag_card = cqt.cqt_magnitude(y[:CQT_CPU_EXAMPLES]).cpu()
+    mag_cpu = cqt.cqt_magnitude(y[:CQT_CPU_EXAMPLES].cpu())
+    mag_err = float((mag_card - mag_cpu).abs().max() / mag_cpu.abs().max())
+    full = [float(v) for v in cqt.multi_resolution_cqt_loss(y, x)]
+
+    out_dir = os.path.join(tmp, "generated_audios")
+    written, demo_s, _ = quietly(lambda: generate_audios.main(
+        ["--model", "unet", "--checkpoint", ckpt, "--out", out_dir, "--seconds", "3",
+         "--device", str(dev)]))
+    line = {
+        "phase": "monitoring", "writer": kind, "scalars": sum(c[0] == "scalar" for c in writer.calls),
+        "images": len(images), "image_shape": list(shape), "bad_images": bad,
+        "log_media_s": media_s, "val_loss": val["loss"], "val_psnr": metrics["psnr"],
+        "cqt_batch": CQT_BATCH, "cqt_samples": TRAIN_SAMPLES, "cqt_ms": cqt_ms,
+        "cqt_losses": full, "cqt_card_vs_cpu_rel": cqt_err, "cqt_cpu_examples": CQT_CPU_EXAMPLES,
+        "cqt_magnitude_card_vs_cpu_of_max": mag_err,
+        "generate_audios_s": demo_s, "generate_audios_files": sorted(map(os.path.basename, written)),
+    }
+    emit(line)
+    if len(images) != 9 or bad or line["scalars"] < 3:
+        fail(f"monitoring: {len(images)} images ({bad} bad), {line['scalars']} scalars")
+    if not max(cqt_err, mag_err) <= MAX_CQT_CARD_VS_CPU or not all(map(math.isfinite, full)):
+        fail(f"monitoring: the CQT loss on the card is {cqt_err} from the CPU's ({full})")
+    wavs = {"clean.wav", "augmented.wav"}
+    if not wavs <= set(line["generate_audios_files"]) or not all(
+            os.path.getsize(p) > 1000 for p in written):
+        fail(f"generate_audios wrote {line['generate_audios_files']}")
+
+
+class StandIn:
+    """The streamlit calls the app's panel makes, each answering its
+    default."""
+
+    def markdown(self, *args, **kwargs):
+        pass
+
+    def slider(self, label, min_value, max_value, step, value):
+        return value
+
+    def checkbox(self, label, value):
+        return value
+
+
+def app_phase(dev) -> None:
+    """Phase 34: the demo app's ``define_model`` with a stand-in panel, then
+    ``process_audio`` of 4 x 8 s at 16 kHz on the card: the wav bytes decode
+    to finite audio of peak <= 1."""
+    import scipy.io.wavfile
+
+    model = streamlit_app.define_model(StandIn(), device=dev)
+    x = 0.8 * synth_tracks_device(APP_SEED, range(APP_BATCH), APP_SECONDS * APP_SR, APP_SR,
+                                  device=dev).cpu().numpy()[:, None, :]
+    t0 = time.perf_counter()
+    outs = streamlit_app.process_audio(x, [APP_SR] * APP_BATCH, model)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    warm_ms = wall_ms(lambda: streamlit_app.process_audio(x, [APP_SR] * APP_BATCH, model), 3)
+    decoded = [scipy.io.wavfile.read(io.BytesIO(o)) for o in outs]
+    peaks = [float(np.abs(y.astype(np.float64) / 32767).max()) for _, y in decoded]
+    line = {"phase": "app", "device": str(model.device), "batch": APP_BATCH,
+            "seconds_each": APP_SECONDS, "sample_rate": APP_SR, "parameters": model.parameters,
+            "first_call_ms": first_ms, "process_audio_ms": warm_ms, "peaks": peaks,
+            "rates": [sr for sr, _ in decoded]}
+    emit(line)
+    if model.device.type != "cuda" or len(outs) != APP_BATCH:
+        fail(f"app: {len(outs)} outputs on {model.device}")
+    for sr, y in decoded:
+        if sr != APP_SR or y.shape != (APP_SECONDS * APP_SR,) or not np.isfinite(y).all():
+            fail(f"app: an output decodes to {sr} Hz, shape {y.shape}")
+    if max(peaks) > 1.0:
+        fail(f"app: peak {max(peaks)} above 1")
 
 
 def main() -> None:
@@ -2034,13 +2574,12 @@ def main() -> None:
     # trained in two precisions with a resume, then the trained checkpoint
     # as the denoiser of phases 11 and 12
     train_step_check(dev)
-    ckpt_dir = tempfile.TemporaryDirectory()
-    ckpt_path = train_phase(dev, noise_bank, ir_bank, ckpt_dir.name)
+    unet_ckpt_dir = tempfile.TemporaryDirectory()  # kept for phase 33
+    ckpt_path = train_phase(dev, noise_bank, ir_bank, unet_ckpt_dir.name)
     trained = trained_denoiser_phase(
         dev, ckpt_path, ht, dm, analyzer, queries, aug_default, den_names, q_paths,
         os.path.join(tmp, "cleans"))
     launches_trained = trained["launches"]
-    ckpt_dir.cleanup()
     del trained
     torch.cuda.empty_cache()
 
@@ -2072,13 +2611,25 @@ def main() -> None:
 
     # ---- 22-29. Dejavu, whose path reaches no prune kernel
     prune_before = dict(K.LAUNCHES)
-    dj_line = dejavu_phases(dev, tracks, lengths, names, queries, q_ids, q_offs, unseen,
-                            augmented_host, q_paths, cleans_dir, tmp)
+    dj_line, dj_idx = dejavu_phases(dev, tracks, lengths, names, queries, q_ids, q_offs, unseen,
+                                    augmented_host, q_paths, cleans_dir, tmp)
     dj_line.update(prune_launches_before=prune_before, prune_launches_after=dict(K.LAUNCHES))
     emit(dj_line)
     if dj_line["prune_launches_after"] != prune_before:
         fail(f"the Dejavu phases launched a prune kernel: {prune_before} -> {dict(K.LAUNCHES)}")
     del augmented_host
+
+    # ---- 30-34. the native decoders, the FMA selection indexed and
+    # identified from mp3 paths, the parallel layer, monitoring and the CQT
+    # loss, the demo CLI, the app
+    t_last = time.perf_counter()
+    io_line = native_io_phase()
+    launches_fma = fma_eval_phase(dev, tmp, io_line)
+    launches_mesh = parallel_phase(dev, noise_bank, ir_bank, queries, ht, dm, dj_idx)
+    monitoring_phase(dev, noise_bank, ir_bank, unet_ckpt_dir.name, tmp)
+    unet_ckpt_dir.cleanup()
+    app_phase(dev)
+    emit({"phase": "last_slice_phases", "seconds": time.perf_counter() - t_last})
     tmp_dir.cleanup()
 
     kernels = []
@@ -2090,7 +2641,8 @@ def main() -> None:
             "replaces": f"musicfpaugment_tpu/afp/audfprint/peaks_pallas.py:{line}",
             "launches": launches[kname] + launches_conditions[kname]
             + launches_denoised[kname] + launches_metrics[kname] + launches_trained[kname]
-            + seeded_den["launches"][kname] + trained_den["launches"][kname],
+            + seeded_den["launches"][kname] + trained_den["launches"][kname]
+            + launches_fma["index"][kname] + launches_fma["identify"][kname] + launches_mesh[kname],
             "launches_ingest": launches_ingest[kname],
             "launches_match": launches_match[kname],
             "launches_conditions": launches_conditions[kname],
@@ -2099,6 +2651,9 @@ def main() -> None:
             "launches_trained_denoiser": launches_trained[kname],
             "launches_demucs_denoised": seeded_den["launches"][kname],
             "launches_demucs_trained": trained_den["launches"][kname],
+            "launches_fma_index": launches_fma["index"][kname],
+            "launches_fma_identify": launches_fma["identify"][kname],
+            "launches_mesh_match": launches_mesh[kname],
             "max_abs_err": max(q["max_abs_err"], i["max_abs_err"], st["max_abs_err"]),
             "ms": st["kernel_ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],

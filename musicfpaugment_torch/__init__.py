@@ -7,12 +7,13 @@ The TPU's Pallas kernels become hand-written CUDA C++ kernels under
 ``csrc/`` (built with nvcc at first use, see ``_build.py``); their plain
 PyTorch versions serve CPU tensors only.
 
-Ported so far: audfprint identification (``afp.audfprint``), the augmenter
-and the query generator (``augment``, ``testing.generate_queries``), the
-UNet spectrogram denoiser with its Flax-weights converter (``models``,
-``convert``), and the audfprint evaluation harness with the peak metrics
-(``testing.audfprint_exps``, ``testing.metrics``). ``ROADMAP.md`` lists what
-is left.
+Every module of the JAX package has its counterpart here: audfprint and
+Dejavu (``afp``), the augmenter (``augment``), the UNet and Demucs
+denoisers with their Flax-weights converters (``models``, ``convert``),
+their training with monitoring (``train``), the evaluation harness over the
+FMA selection (``testing``), the native audio decoders (``data``), the
+parallel layer (``parallel``) and the demo app (``apps``). ``ROADMAP.md``
+lists what is left out on purpose (TPU layouts).
 """
 
 from musicfpaugment_torch.device import resolve_device

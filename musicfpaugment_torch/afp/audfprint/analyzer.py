@@ -330,7 +330,8 @@ class AudfprintPeaks:
         """One mono waveform at the analyzer's sample rate from an array or
         a tensor (kept on its device, taken to be at that rate already), a
         ``.npy`` file (likewise), a ``.pkl`` query (pickled at the query
-        generator's rate) or a ``.wav`` file (downmixed and resampled)."""
+        generator's rate) or a ``.wav`` or ``.mp3`` file (downmixed and
+        resampled)."""
         if isinstance(source, torch.Tensor):
             return source.to(torch.float32).reshape(-1)
         if isinstance(source, np.ndarray):
@@ -342,13 +343,13 @@ class AudfprintPeaks:
             with open(source, "rb") as f:
                 d = np.asarray(pickle.load(f), np.float32).reshape(-1)
             return resample(d, WAVEFORM_SAMPLING_RATE, self.target_sr)
-        if ext == "wav":
+        if ext in ("wav", "mp3"):
             data, sr = read_wav(source)
             mono = data.mean(axis=0) if data.shape[0] > 1 else data[0]
             return resample(mono, sr, self.target_sr)
         raise ValueError(
-            f"cannot decode {source!r}: only arrays, tensors and .npy, .pkl "
-            "and .wav files"
+            f"cannot decode {source!r}: only arrays, tensors and .npy, .pkl, "
+            ".wav and .mp3 files"
         )
 
     def ingest_batch(

@@ -28,6 +28,7 @@ from musicfpaugment_torch.afp.audfprint import landmarks as lm
 from musicfpaugment_torch.afp.audfprint.hash_table import HashTable
 from musicfpaugment_torch.afp.audfprint.peaks import find_peaks_shifts
 from musicfpaugment_torch.device import DeviceLike, resolve_device
+from musicfpaugment_torch.parallel.mesh import canonical_device, distinct, make_mesh, shard_bounds
 
 
 def _run_length(sorted_vals: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -194,7 +195,15 @@ class DeviceMatcher:
     (default ``search_depth``, clipped to the corpus size);
     ``max_query_frames`` is the floor of the negative-offset range, raised
     per call to cover the query. ``device=None`` means CUDA and raises
-    without it unless ``device="cpu"``."""
+    without it unless ``device="cpu"``.
+
+    ``mesh``: a list of devices (``parallel.make_mesh``) to serve on. A
+    batch of waveforms is then split over them (its size must divide by the
+    mesh size), the table is put once on each distinct device, each device
+    computes its queries' hashes, one scalar a device picks the batch's lane
+    tier, and each device matches its queries; the verdicts are
+    concatenated and the overflow counts summed, bit-identical to one
+    device. With a mesh, ``device`` defaults to the mesh's first."""
 
     def __init__(
         self,
@@ -206,8 +215,10 @@ class DeviceMatcher:
         search_depth: int = 100,
         cell_budget: int = 16384,
         device: DeviceLike = None,
+        mesh: Optional[Sequence[DeviceLike]] = None,
     ) -> None:
-        self.device = resolve_device(device)
+        self.mesh = None if mesh is None else make_mesh(devices=mesh)
+        self.device = resolve_device(device if device is not None or mesh is None else self.mesh[0])
         self.ht = hash_table
         self.window = window
         self.threshcount = threshcount
@@ -232,8 +243,6 @@ class DeviceMatcher:
         counts_clipped = np.minimum(self.ht.counts, self.ht.depth).astype(np.int32)
         self.eff_depth = int(max(1, counts_clipped.max())) if counts_clipped.size else 1
         table_slice = self.ht.table[:, : self.eff_depth]
-        self._table = torch.from_numpy(table_slice.astype(np.int32)).to(self.device)
-        self._counts = torch.from_numpy(counts_clipped).to(self.device)
         timemask = (1 << self.maxtimebits) - 1
         used = np.arange(self.eff_depth)[None, :] < counts_clipped[:, None]
         stored_times = (table_slice & np.uint32(timemask))[used]
@@ -243,12 +252,20 @@ class DeviceMatcher:
         hpi_pad = np.pad(hpi, (0, self.num_ids - len(hpi)), constant_values=1.0)
         # hpi of the id stored in each slot: the weight rides the hit gather
         slot_ids = (table_slice >> np.uint32(self.maxtimebits)).astype(np.int64) - 1
-        self._hpit = torch.from_numpy(
-            hpi_pad[np.clip(slot_ids, 0, self.num_ids - 1)].astype(np.float32)
-        ).to(self.device)
+        host = (
+            torch.from_numpy(table_slice.astype(np.int32)),
+            torch.from_numpy(counts_clipped),
+            torch.from_numpy(hpi_pad[np.clip(slot_ids, 0, self.num_ids - 1)].astype(np.float32)),
+        )
+        # (table, counts, hpi mirror) once on each distinct device
+        self._replicas = {
+            d: tuple(t.to(d) for t in host)
+            for d in distinct([self.device] + (self.mesh or []))
+        }
+        self._table, self._counts, self._hpit = self._replicas[canonical_device(self.device)]
 
     def table_bytes(self) -> int:
-        """Bytes of the device-resident table, counts and hpi mirror."""
+        """Bytes of one device's table, counts and hpi mirror."""
         return sum(t.numel() * t.element_size() for t in (self._table, self._counts, self._hpit))
 
     def _match_kwargs(self, max_query_frames: int) -> dict:
@@ -316,7 +333,7 @@ class DeviceMatcher:
         ``analyzer.pad_waveform_batch``. ``denoiser`` is a spectrogram
         denoiser (``convert.unet_denoiser``), called once per shift on that
         shift's normalised magnitudes."""
-        waveforms = torch.as_tensor(waveforms, dtype=torch.float32, device=self.device)
+        waveforms = torch.as_tensor(waveforms, dtype=torch.float32)
         B, T = waveforms.shape
         n_frames = 1 + T // n_hop
         mqf = self._effective_mqf(n_frames - 1)
@@ -325,26 +342,58 @@ class DeviceMatcher:
             max_query_hashes,
             1 << int(np.ceil(np.log2(max(3 * n_frames * n_shifts, 64)))),
         )
-        vsamp = None
-        if valid_samples is not None:
-            vsamp = torch.as_tensor(valid_samples, dtype=torch.int32, device=self.device)
-
-        # every shift's peaks from one forward and one backward prune
-        masks_by_shift = find_peaks_shifts(
-            waveforms,
-            n_shifts,
-            density=density,
-            n_fft=n_fft,
-            n_hop=n_hop,
-            f_sd=f_sd,
-            maxpksperframe=maxpksperframe,
-            valid_samples=vsamp,
-            denoiser=denoiser,
+        peak_kw = dict(density=density, n_fft=n_fft, n_hop=n_hop, f_sd=f_sd,
+                       maxpksperframe=maxpksperframe, denoiser=denoiser)
+        vs = None if valid_samples is None else torch.as_tensor(valid_samples, dtype=torch.int32)
+        shards = (
+            [((0, B), self.device)] if self.mesh is None
+            else list(zip(shard_bounds(B, self.mesh), self.mesh))
         )
+        staged = [
+            self._compact_hashes(
+                waveforms[lo:hi].to(dev), None if vs is None else vs[lo:hi].to(dev),
+                n_shifts, budget, peak_kw,
+            )
+            for (lo, hi), dev in shards
+        ]
+        # one scalar readback a device picks the batch's lane tier
+        n = staged[0][0].shape[-1]
+        n_used = max(int(torch.clamp(nv, max=n).max()) for _, _, nv in staged)
+        n_overflow = sum(int((nv > n).sum()) for _, _, nv in staged)
+        h_tier = min(n, 1 << int(np.ceil(np.log2(max(n_used, 64)))))
+        ids, counts, cell_overflow = [], [], 0
+        kw = self._match_kwargs(mqf)
+        for (_, dev), (t, h, nv) in zip(shards, staged):
+            vq = torch.arange(h_tier, device=dev) < torch.clamp(nv, max=h_tier)[:, None]
+            table = self._replicas[canonical_device(dev)]
+            best_id, best_count, _, overflow = _match_impl(
+                *table, t[:, :h_tier], h[:, :h_tier], vq, **kw
+            )
+            ids.append(best_id)
+            counts.append(best_count)
+            cell_overflow += overflow
+        if n_overflow:
+            warnings.warn(
+                f"{n_overflow}/{B} queries exceeded the {budget}-hash "
+                "budget and were truncated (earliest hashes kept); pass a "
+                "larger max_query_hashes if this is expected",
+                stacklevel=2,
+            )
+        best_id = torch.cat([i.cpu() for i in ids])
+        best_count = torch.cat([c.cpu() for c in counts])
+        return self._verdicts(best_id, best_count, cell_overflow, B)
+
+    @staticmethod
+    def _compact_hashes(waveforms, vsamp, n_shifts: int, budget: int, peak_kw: dict):
+        """Every shift's peaks from one forward and one backward prune, the
+        landmark hashes, the cross-shift dedup and the compaction to
+        ``budget`` lanes, on the waveforms' device: (times, hashes, number
+        of valid hashes of each query)."""
+        masks_by_shift = find_peaks_shifts(waveforms, n_shifts, valid_samples=vsamp, **peak_kw)
         th_parts, valid_parts = [], []
         for masks in masks_by_shift:
             C = int(masks.shape[-1])
-            max_peaks = -(-maxpksperframe * C // 128) * 128
+            max_peaks = -(-peak_kw["maxpksperframe"] * C // 128) * 128
             th, v = lm.hashes_from_masks_batched(
                 masks, max_peaks=max_peaks, max_hashes=max_peaks * lm.MAXPAIRSPERPEAK
             )
@@ -353,25 +402,7 @@ class DeviceMatcher:
         th = torch.cat(th_parts, dim=1)
         valid = torch.cat(valid_parts, dim=1)
         t, h, v = lm.sort_dedup_hashes(th[..., 0], th[..., 1], valid)
-        n = min(budget, t.shape[-1])
-        t, h, nv = lm.compact_valid_first(t, h, v, out_len=n)
-        # one scalar readback picks the lane tier
-        n_used = int(torch.clamp(nv, max=n).max())
-        n_overflow = int((nv > n).sum())
-        h_tier = min(n, 1 << int(np.ceil(np.log2(max(n_used, 64)))))
-        vq = torch.arange(h_tier, device=self.device) < torch.clamp(nv, max=h_tier)[:, None]
-        best_id, best_count, _, cell_overflow = _match_impl(
-            self._table, self._counts, self._hpit,
-            t[:, :h_tier], h[:, :h_tier], vq, **self._match_kwargs(mqf),
-        )
-        if n_overflow:
-            warnings.warn(
-                f"{n_overflow}/{B} queries exceeded the {budget}-hash "
-                "budget and were truncated (earliest hashes kept); pass a "
-                "larger max_query_hashes if this is expected",
-                stacklevel=2,
-            )
-        return self._verdicts(best_id, best_count, cell_overflow, B)
+        return lm.compact_valid_first(t, h, v, out_len=min(budget, t.shape[-1]))
 
     def match_hashes_batch(
         self, hashes_list: Sequence[np.ndarray]

@@ -182,7 +182,9 @@ class Dejavu:
 
     def fingerprint_directory(self, path_list: list, nprocesses=None) -> None:
         """Fingerprint and store each file in turn, skipping files whose
-        content hash is already stored."""
+        content hash is already stored. A file that cannot be read prints
+        and is skipped, as the original Dejavu's pool skips a failed worker
+        (the JAX package raises)."""
         for file_name in path_list:
             if (
                 isinstance(file_name, str)
@@ -190,7 +192,11 @@ class Dejavu:
                 and unique_hash(file_name) in self.songhashes_set
             ):
                 continue
-            song_name, hashes, file_hash = self._fingerprint_worker((file_name, None))
+            try:
+                song_name, hashes, file_hash = self._fingerprint_worker((file_name, None))
+            except (OSError, ValueError) as exc:
+                print("Failed fingerprinting", file_name, exc)
+                continue
             sid = self.db.insert_song(song_name, file_hash, len(hashes))
             self.db.insert_hashes(sid, list(hashes))
             self.db.set_song_fingerprinted(sid)

@@ -54,6 +54,7 @@ from musicfpaugment_torch.afp.dejavu.variables import (
     SONG_NAME,
 )
 from musicfpaugment_torch.device import DeviceLike, resolve_device
+from musicfpaugment_torch.parallel.mesh import canonical_device, distinct, make_mesh, shard_bounds
 
 
 def _pow2ceil(n: int) -> int:
@@ -331,7 +332,13 @@ class DejavuDeviceMatcher:
     bit-identical to the full-width one. ``spec_denoiser`` is the UNet hook,
     applied where :func:`fingerprint_spectrogram_batch` applies it.
 
-    ``mesh`` (multi-card serving) is not ported and raises."""
+    ``mesh``: a list of devices (``parallel.make_mesh``) to serve on. A
+    batch is then split over them (its size must divide by the mesh size),
+    the CSR corpus is put once on each distinct device, each device
+    fingerprints and matches its queries with the batch's widest lane
+    picking one tier for all, and the results are concatenated,
+    bit-identical to one device. With a mesh, ``device`` defaults to the
+    mesh's first."""
 
     def __init__(
         self,
@@ -342,22 +349,22 @@ class DejavuDeviceMatcher:
         mesh=None,
         device: DeviceLike = None,
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device serving (mesh) is not ported; match on one device"
-            )
         self.index = index
         self.settings = _settings(settings)
         self.spec_denoiser = spec_denoiser
         self.max_query_frames = max_query_frames
-        self.device = resolve_device(device)
+        self.mesh = None if mesh is None else make_mesh(devices=mesh)
+        self.device = resolve_device(device if device is not None or mesh is None else self.mesh[0])
         self.refresh()
 
     def refresh(self) -> None:
-        """(Re-)put the CSR corpus on the device after new songs."""
+        """(Re-)put the CSR corpus on the devices after new songs."""
         starts, rows, self.nbuckets, self.depth = self.index.finalize()
-        self._starts = torch.from_numpy(starts).to(self.device)
-        self._rows = torch.from_numpy(rows.astype(np.int64)).to(self.device)
+        host = (torch.from_numpy(starts), torch.from_numpy(rows.astype(np.int64)))
+        self._replicas = {
+            d: tuple(t.to(d) for t in host) for d in distinct([self.device] + (self.mesh or []))
+        }
+        self._starts, self._rows = self._replicas[canonical_device(self.device)]
         self.num_ids = max(len(self.index.names), 1)
         offs = rows & np.uint32((1 << self.index.timebits) - 1)
         max_off = int(offs.max()) if rows.size else 0
@@ -385,33 +392,52 @@ class DejavuDeviceMatcher:
         """(B, T) waveforms -> per query an ``align_matches``-format dict
         (empty: no row matched). The ``match`` gate of the file recognizer
         is in :meth:`recognize_waveforms`."""
-        wavs = torch.as_tensor(waveforms, dtype=torch.float32, device=self.device)
+        wavs = torch.as_tensor(waveforms, dtype=torch.float32)
         n_frames = _n_frames(wavs.shape[1], self.settings)
         mp = max_peaks or _pow2ceil(4 * n_frames)
-        packed = fingerprint_and_pack(wavs, self.settings, mp, denoiser=self.spec_denoiser)
-        return self.match_packed(packed, n_frames)
+        shards = (
+            [((0, wavs.shape[0]), self.device)] if self.mesh is None
+            else list(zip(shard_bounds(wavs.shape[0], self.mesh), self.mesh))
+        )
+        return self._match_shards([
+            (dev, fingerprint_and_pack(wavs[lo:hi].to(dev), self.settings, mp,
+                                       denoiser=self.spec_denoiser))
+            for (lo, hi), dev in shards
+        ], n_frames)
 
     def match_packed(self, packed, n_frames: int) -> List[Dict[str, Any]]:
         """:func:`pack_hashes_from_masks`' output for B queries of
         ``n_frames`` frames, on this matcher's device -> per query an
         ``align_matches``-format dict, through the lane tier."""
+        return self._match_shards([(self.device, packed)], n_frames)
+
+    def _match_shards(self, shards, n_frames: int) -> List[Dict[str, Any]]:
+        """(device, packed hashes) of each slice of a batch -> the batch's
+        results: one lane tier for the batch (one scalar a device), then
+        each slice matched against its device's corpus and read back in one
+        copy."""
         st = self.settings
-        keys, t1, valid, kf, n_distinct, n_over = packed
-        B = keys.shape[0]
+        B = sum(int(p[0].shape[0]) for _, p in shards)
         if int(self._rows.shape[0]) == 0:  # empty corpus: no row matches
             return [{} for _ in range(B)]
         # widest used lane: every in-range key (valid or a (key, t1)
         # duplicate) sorts before the invalid ones
-        n_used = int((keys < INVALID_KEY).sum(dim=-1).max())
-        h_tier = min(keys.shape[1], _pow2ceil(max(n_used, 128)))
-        out = _dejavu_match_impl(
-            self._starts, self._rows, keys[:, :h_tier], t1[:, :h_tier],
-            valid[:, :h_tier], kf[:, :h_tier], **self._match_kwargs(self._effective_mqf(n_frames)),
-        )
-        host = torch.cat([torch.stack(list(out) + [n_distinct]).flatten(),
-                          n_over.reshape(1).to(torch.int32)]).cpu().numpy()
-        best_sid, best_count, best_dt, dedup_best, n_distinct = host[:-1].reshape(5, B)
-        _warn_overflow(int(host[-1]), B, keys.shape[1] // (int(st["fan_value"]) - 1), "queries")
+        n_used = max(int((p[0] < INVALID_KEY).sum(dim=-1).max()) for _, p in shards)
+        width = int(shards[0][1][0].shape[1])
+        h_tier = min(width, _pow2ceil(max(n_used, 128)))
+        kwargs = self._match_kwargs(self._effective_mqf(n_frames))
+        parts, n_over = [], 0
+        for dev, (keys, t1, valid, kf, n_distinct, over) in shards:
+            out = _dejavu_match_impl(
+                *self._replicas[canonical_device(dev)], keys[:, :h_tier], t1[:, :h_tier],
+                valid[:, :h_tier], kf[:, :h_tier], **kwargs,
+            )
+            host = torch.cat([torch.stack(list(out) + [n_distinct]).flatten(),
+                              over.reshape(1).to(torch.int32)]).cpu().numpy()
+            parts.append(host[:-1].reshape(5, -1))
+            n_over += int(host[-1])
+        best_sid, best_count, best_dt, dedup_best, n_distinct = np.concatenate(parts, axis=1)
+        _warn_overflow(n_over, B, width // (int(st["fan_value"]) - 1), "queries")
         results: List[Dict[str, Any]] = []
         for i in range(B):
             if best_sid[i] < 0:

@@ -18,6 +18,7 @@ draws, and statistically otherwise.
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -323,6 +324,19 @@ class AugmentFP:
             self.apply(waveforms[i : i + 1], [{k: v[i : i + 1] for k, v in d.items()} for d in draws])
             for i in range(len(indices))
         ])
+
+    def to(self, device: DeviceLike) -> "AugmentFP":
+        """This augmenter with its banks on ``device`` (itself if they are
+        there already); the copy shares the parameters and the draws'
+        stream."""
+        device = resolve_device(device)
+        if device == self.device:
+            return self
+        moved = copy.copy(self)
+        moved.device = device
+        moved.noise_bank = self.noise_bank.to(device)
+        moved.ir_bank = self.ir_bank.to(device)
+        return moved
 
     def _next_seed(self) -> int:
         return int(torch.randint(0, 2**31 - 1, (1,), generator=self._generator))

@@ -1,10 +1,12 @@
 """Host-side audio IO (the port's own copy of
-musicfpaugment_tpu/data/audio_io.py; numpy and scipy only).
+musicfpaugment_tpu/data/audio_io.py).
 
-WAV decoding goes through scipy, resampling through scipy's polyphase
-resampler. The JAX package's native C++ WAV and mp3 decoders are not
-ported: ``.mp3`` paths raise. This is the host boundary: everything after
-it is device-resident.
+``.mp3`` paths decode through the native libmpg123 decoder
+(``data/native.py``, built by g++ on first use from ``native/*.cc``); WAV
+goes through scipy, which gives the native WAV decoder's samples bit for
+bit (``tests/test_torch_native_io.py``). Resampling is scipy's polyphase
+resampler. This is the host boundary: everything after it is
+device-resident.
 
 ``Audio``: offset/num_samples windowing expressed in *target*-rate samples,
 mono downmix, resample, off-by-one pad/trim repair.
@@ -22,15 +24,20 @@ import numpy as np
 SUPPORTED_EXTENSIONS = (".wav", ".mp3")
 
 
-def _reject_mp3(path) -> None:
-    if str(path).lower().endswith(".mp3"):
-        raise IOError(f"cannot decode {path}: mp3 decoding is not ported")
+def _is_mp3(path) -> bool:
+    return str(path).lower().endswith(".mp3")
 
 
 def read_wav(path: Union[str, Path]) -> Tuple[np.ndarray, int]:
-    """Return (samples (channels, time) float32 in [-1, 1], sample_rate)
-    of a RIFF/WAVE file."""
-    _reject_mp3(path)
+    """Return (samples (channels, time) float32 in [-1, 1], sample_rate).
+
+    Dispatches on the extension: ``.mp3`` through the native libmpg123
+    decoder (raises if it cannot be built or loaded), anything else as a
+    RIFF/WAVE file."""
+    if _is_mp3(path):
+        from musicfpaugment_torch.data import native
+
+        return native.read_mp3(str(path))
     import scipy.io.wavfile
 
     sr, data = scipy.io.wavfile.read(str(path))
@@ -50,12 +57,22 @@ def read_wav(path: Union[str, Path]) -> Tuple[np.ndarray, int]:
 
 
 def wav_metadata(path: Union[str, Path]) -> Tuple[int, int]:
-    """Return (num_samples, sample_rate) without decoding the payload."""
-    _reject_mp3(path)
+    """Return (num_samples, sample_rate) without decoding the payload
+    (an mp3 by a stream scan)."""
+    if _is_mp3(path):
+        from musicfpaugment_torch.data import native
+
+        return native.mp3_metadata(str(path))
     import wave
 
-    with wave.open(str(path), "rb") as f:
-        return f.getnframes(), f.getframerate()
+    try:
+        with wave.open(str(path), "rb") as f:
+            return f.getnframes(), f.getframerate()
+    except wave.Error:  # a float WAV: scipy maps it without decoding
+        import scipy.io.wavfile
+
+        sr, data = scipy.io.wavfile.read(str(path), mmap=True)
+        return int(data.shape[0]), int(sr)
 
 
 def resample(samples: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:

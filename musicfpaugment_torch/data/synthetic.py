@@ -8,12 +8,15 @@ musicfpaugment_tpu/data/synthetic.py).
   notes from its own ``torch.Generator``, so a corpus of any size is
   addressable without storage and a track does not depend on the batch it
   is built in. Its bits differ from the JAX version's (different
-  generators).
+  generators);
+* :func:`write_fma_tracks_csv` — a ``tracks.csv`` in FMA's metadata
+  layout, for corpora written by tests and smoke runs.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Sequence
+import csv
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -129,3 +132,31 @@ def synth_tracks_device(
     out = acc[:, :n_frames].reshape(B, n_frames * L)[:, :num_samples]
     peak = torch.amax(out.abs(), dim=-1, keepdim=True)
     return out / torch.clamp(peak, min=1e-9)
+
+
+FMA_TRACK_COLUMNS = (
+    ("album", "title"), ("artist", "name"), ("set", "split"), ("set", "subset"),
+    ("track", "duration"), ("track", "genre_top"), ("track", "genres"), ("track", "title"),
+)
+
+
+def write_fma_tracks_csv(
+    path: str,
+    track_ids: Sequence[int],
+    genres: Sequence[Optional[str]],
+    durations: Sequence[Optional[float]],
+) -> None:
+    """FMA's ``fma_metadata/tracks.csv`` layout: a row of column groups, a
+    row of column names, a row naming the index (``track_id``), then one row
+    a track; a ``None`` genre or duration is an empty cell."""
+    with open(path, "w", newline="") as fh:
+        w = csv.writer(fh, lineterminator="\n")
+        w.writerow([""] + [g for g, _ in FMA_TRACK_COLUMNS])
+        w.writerow([""] + [n for _, n in FMA_TRACK_COLUMNS])
+        w.writerow(["track_id"] + [""] * len(FMA_TRACK_COLUMNS))
+        for tid, genre, dur in zip(track_ids, genres, durations):
+            w.writerow([
+                int(tid), f"Album {tid % 97}, vol. {tid % 7}", f"Artist {tid % 113}",
+                "training", "large", "" if dur is None else dur,
+                "" if genre is None else genre, f"[{tid % 16}]", f'Track "{tid}"',
+            ])

@@ -29,11 +29,43 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     """``BatchNorm2d`` that keeps Flax's running statistics: a training
     forward folds the *biased* batch variance into ``running_var`` (PyTorch
     folds in the unbiased one). The outputs are ``BatchNorm2d``'s in both
-    modes. ``momentum`` is PyTorch's: 0.1 is Flax's 0.9."""
+    modes. ``momentum`` is PyTorch's: 0.1 is Flax's 0.9.
+
+    With ``distributed`` set (the trainer sets it when it trains under
+    ``DistributedDataParallel`` on more than one rank), a training forward
+    normalises by the
+    statistics of the *global* batch, every rank's slice together, as Flax's
+    BatchNorm does under JAX's sharding: the per-channel sums, then the sums
+    of squared deviations from the global mean, go through the
+    process group's autograd-aware all-reduce (two-pass, so the variance is
+    as exact as one process's)."""
+
+    distributed = False
+
+    def _global_stats(self, x: torch.Tensor):
+        import torch.distributed.nn.functional as dist_nn
+
+        n = torch.full((1,), x.numel() // x.shape[1], dtype=x.dtype, device=x.device)
+        packed = dist_nn.all_reduce(torch.cat([x.sum(dim=(0, 2, 3)), n]))
+        count = packed[-1]
+        mean = packed[:-1] / count
+        d = x - mean[None, :, None, None]
+        var = dist_nn.all_reduce((d * d).sum(dim=(0, 2, 3))) / count
+        return d, mean, var
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.distributed:
+            xs = x.to(torch.promote_types(x.dtype, self.running_mean.dtype))
+            d, mean, var = self._global_stats(xs)
+            with torch.no_grad():
+                self.running_mean.lerp_(mean.detach().to(self.running_mean.dtype), self.momentum)
+                self.running_var.lerp_(var.detach().to(self.running_var.dtype), self.momentum)
+                self.num_batches_tracked += 1
+            shape = (1, -1, 1, 1)
+            y = d * torch.rsqrt(var + self.eps).reshape(shape) * self.weight.reshape(shape)
+            return (y + self.bias.reshape(shape)).to(x.dtype)
         with torch.no_grad():
             stats_in = x.detach().to(self.running_mean.dtype)
             var, mean = torch.var_mean(stats_in, dim=(0, 2, 3), unbiased=False)

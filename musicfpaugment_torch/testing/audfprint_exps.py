@@ -3,12 +3,12 @@ musicfpaugment_tpu/testing/audfprint_exps.py).
 
 Actions: ``identification_rate`` (accuracy over the condition directories,
 no-denoise / denoise / mix-pipeline), ``peaks_metrics`` (peak P/R/F1 and
-spectrogram PSNR of augmented and denoised queries against the clean ones).
-``index`` waits for ``testing/fma_preprocessing.py``; ``create_fp_database``
-indexes any list of inputs.
+spectrogram PSNR of augmented and denoised queries against the clean ones),
+``index`` (the FMA selection of ``testing/fma_preprocessing.py`` into the
+configured table); ``create_fp_database`` indexes any list of inputs.
 
-Inputs are arrays, tensors (kept on their device) or ``.npy``, ``.pkl`` and
-``.wav`` paths; a ``names`` list gives the names to index under and the
+Inputs are arrays, tensors (kept on their device) or ``.npy``, ``.pkl``,
+``.wav`` and ``.mp3`` paths; a ``names`` list gives the names to index under and the
 ground truth to score against when the inputs are not paths. Analyzers and
 denoisers are injected; results go to ``RESULTS_DIR/*.json``.
 """
@@ -82,38 +82,48 @@ def create_fp_database(
     hash_tab: Optional[HashTable] = None,
     names: Optional[Sequence[str]] = None,
     device: DeviceLike = None,
+    num_workers: int = 8,
 ) -> HashTable:
     """Bulk-index a corpus into the hash table.
 
-    Each batch's peaks and landmark hashes run on the device through
-    ``ingest_batch`` (one shift), and each track is stored by one
-    vectorized numpy scatter. Mixed-length batches are reflect-padded with
-    validity masking; lengths are bucketed to 2-second steps. Inputs that
-    fail to load print and are skipped. Returns the table (also saved to
-    ``dbpath`` unless it is None)."""
+    A pool of ``num_workers`` host threads decodes the files one batch
+    ahead of the device. Each batch's peaks and landmark hashes run on the
+    device through ``ingest_batch`` (one shift), and each track is stored by
+    one vectorized numpy scatter. Mixed-length batches are reflect-padded
+    with validity masking; lengths are bucketed to 2-second steps. Inputs
+    that fail to load print and are skipped. Returns the table (also saved
+    to ``dbpath`` unless it is None)."""
     analyzer = _analyzer_for(analyzer, device)
     hash_tab = hash_tab if hash_tab is not None else HashTable()
     names = list(names) if names is not None else [str(f) for f in files]
     if len(names) != len(files):
         raise ValueError("names and files differ in length")
     bucket = 2 * analyzer.target_sr
-    for start in range(0, len(files), batch_size):
-        good = []
-        for i in range(start, min(start + batch_size, len(files))):
-            try:
-                w = analyzer._load(files[i])
-            except (OSError, ValueError) as exc:
-                print("error with ", names[i], exc)
-                continue
-            if w.shape[0]:
-                good.append((names[i], w))
-        if good:
-            batch, valid = _stack(
-                [w for _, w in good], analyzer.n_fft, analyzer.device, bucket
-            )
-            analyzer.ingest_batch(
-                hash_tab, [n for n, _ in good], batch, shifts=1, valid_samples=valid
-            )
+
+    def decode(i: int):
+        try:
+            return analyzer._load(files[i])
+        except (OSError, ValueError) as exc:
+            print("error with ", names[i], exc)
+            return None
+
+    with cf.ThreadPoolExecutor(max_workers=max(1, num_workers)) as pool:
+        def submit(start: int):
+            stop = min(start + batch_size, len(files))
+            return [(i, pool.submit(decode, i)) for i in range(start, stop)]
+
+        pending = submit(0)
+        for start in range(0, len(files), batch_size):
+            current, pending = pending, submit(start + batch_size)
+            good = [(names[i], w) for i, w in ((i, f.result()) for i, f in current)
+                    if w is not None and w.shape[0]]
+            if good:
+                batch, valid = _stack(
+                    [w for _, w in good], analyzer.n_fft, analyzer.device, bucket
+                )
+                analyzer.ingest_batch(
+                    hash_tab, [n for n, _ in good], batch, shifts=1, valid_samples=valid
+                )
     if dbpath is not None:
         hash_tab.save(dbpath)
     return hash_tab
@@ -466,21 +476,24 @@ def peaks_metrics_results(
     return results
 
 
-def main() -> None:
+def main(argv: Optional[Sequence[str]] = None) -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument("--action", default="identification_rate")
     parser.add_argument("--model", default="unet")
-    args = parser.parse_args()
+    parser.add_argument("--device", default=None, help="default: cuda")
+    args = parser.parse_args(argv)
 
     if str(args.action) == "index":
-        raise NotImplementedError(
-            "indexing FMA from its metadata (testing/fma_preprocessing.py) is "
-            "not ported; call create_fp_database with a list of audio paths"
+        # the FMA selection's paths (testing/fma_preprocessing.py's output)
+        from musicfpaugment_torch.testing.fma_preprocessing import preprocessed_table
+
+        create_fp_database(
+            preprocessed_table()["file_paths"], afp_db_paths["audfprint"], device=args.device
         )
     if str(args.action) == "identification_rate":
-        identification_rate_results(str(args.model))
+        identification_rate_results(str(args.model), device=args.device)
     if str(args.action) == "peaks_metrics":
-        peaks_metrics_results(str(args.model))
+        peaks_metrics_results(str(args.model), device=args.device)
 
 
 if __name__ == "__main__":

@@ -4,9 +4,9 @@ musicfpaugment_tpu/testing/dejavu_exps.py).
 Actions: ``identification_rate`` (accuracy over the condition directories:
 no-denoise / denoise / mix pipeline, one file at a time through
 :class:`FileRecognizer`), ``peaks_metrics`` (peak P/R/F1 and spectrogram
-PSNR of augmented and denoised queries against the clean ones). ``index``
-waits for ``testing/fma_preprocessing.py``; ``create_fp_database`` indexes
-any list of files. :func:`compute_accuracy_batched` is the batched
+PSNR of augmented and denoised queries against the clean ones), ``index``
+(the FMA selection of ``testing/fma_preprocessing.py`` into the configured
+database); ``create_fp_database`` indexes any list of files. :func:`compute_accuracy_batched` is the batched
 counterpart of :func:`compute_accuracy` through
 :class:`DejavuDeviceMatcher`. Unlike the original harness, the peak metrics
 are not cut to the first 5 queries of a condition (``max_queries`` bounds
@@ -20,7 +20,7 @@ import collections
 import concurrent.futures as cf
 import json
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -337,21 +337,22 @@ def peaks_metrics_results(
     return results
 
 
-def main() -> None:
+def main(argv: Optional[Sequence[str]] = None) -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument("--action", default="identification_rate")
     parser.add_argument("--model", default="unet")
-    args = parser.parse_args()
+    parser.add_argument("--device", default=None, help="default: cuda")
+    args = parser.parse_args(argv)
 
     if str(args.action) == "index":
-        raise NotImplementedError(
-            "indexing FMA from its metadata (testing/fma_preprocessing.py) is "
-            "not ported; call create_fp_database with a list of audio paths"
-        )
+        # the FMA selection's paths (testing/fma_preprocessing.py's output)
+        from musicfpaugment_torch.testing.fma_preprocessing import preprocessed_table
+
+        create_fp_database(preprocessed_table()["file_paths"], device=args.device)
     if str(args.action) == "identification_rate":
-        identification_rate_results(str(args.model))
+        identification_rate_results(str(args.model), device=args.device)
     if str(args.action) == "peaks_metrics":
-        peaks_metrics_results(str(args.model))
+        peaks_metrics_results(str(args.model), device=args.device)
 
 
 if __name__ == "__main__":

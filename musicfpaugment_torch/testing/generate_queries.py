@@ -16,7 +16,7 @@ import json
 import os
 import pickle
 import random
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -113,19 +113,21 @@ def generate_augmented_queries(
                     pickle.dump(np.asarray(aug), handle)
 
 
-def main() -> None:
+def main(argv: Optional[Sequence[str]] = None) -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument("--queries", default="augmented")
     parser.add_argument("--save", action="store_true")
     parser.add_argument("--device", default=None, help="default: cuda")
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
 
     if str(args.queries) == "cleans":
-        raise NotImplementedError(
-            "selecting the clean queries from the FMA metadata "
-            "(testing/fma_preprocessing.py) is not ported; call "
-            "generate_clean_queries with a list of audio paths"
-        )
+        from musicfpaugment_torch.testing.fma_preprocessing import TestSet, preprocessed_table
+
+        testset = TestSet(preprocessed_table())
+        testset.remove_short_tracks()
+        selected_queries = testset.sample_queries()
+        selected_queries = testset.remove_exceptions(selected_queries)
+        generate_clean_queries(selected_queries, queries_paths["cleans"], save=args.save)
 
     if str(args.queries) == "augmented":
         for pipeline_type, params in test_pipelines_parameters.items():

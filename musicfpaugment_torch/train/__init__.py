@@ -1,5 +1,10 @@
-"""Training: losses, the trainer, the CLI (``train.train``)."""
+"""Training: losses, the CQT losses, the trainer, the CLI (``train.train``)."""
 
+from musicfpaugment_torch.train.cqt import (
+    cqt_loss,
+    cqt_magnitude,
+    multi_resolution_cqt_loss,
+)
 from musicfpaugment_torch.train.losses import (
     l1_loss,
     log_stft_magnitude_loss,
@@ -17,6 +22,9 @@ from musicfpaugment_torch.train.trainer import (
 )
 
 __all__ = [
+    "cqt_loss",
+    "cqt_magnitude",
+    "multi_resolution_cqt_loss",
     "l1_loss",
     "log_stft_magnitude_loss",
     "multi_resolution_stft_loss",

@@ -7,7 +7,9 @@ Data sources resolve in order: MTG-Jamendo and DCASE where they are mounted
 noise/IR banks, so that the command runs anywhere. Augmentation runs on the
 device inside the training step (the loaders ship clean batches). The
 device is ``--device`` (CUDA by default); without CUDA the command raises
-unless it is given ``--device cpu``.
+unless it is given ``--device cpu``. ``--multihost`` trains data-parallel,
+one process per device, as ``torchrun --nproc-per-node N -m
+musicfpaugment_torch.train.train --multihost`` starts them.
 """
 
 from __future__ import annotations
@@ -74,21 +76,31 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     parser.add_argument("--val-steps", type=int, default=P.VAL_STEPS)
     parser.add_argument("--save", action="store_true")
     parser.add_argument("--monitoring", action="store_true",
-                        help="accepted; TensorBoard logging is not ported yet")
+                        help="TensorBoard scalars every epoch and validation triplets every "
+                        "10 epochs under <checkpoint>/tb (needs the tensorboard package; "
+                        "without it the scalars stay in the trainer's history)")
     parser.add_argument("--base", type=int, default=64,
                         help="UNet width scale (64 = reference plan)")
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 compute (float32 parameters and Adam state)")
-    parser.add_argument("--multihost", action="store_true",
-                        help="multi-process training (not ported yet)")
+    parser.add_argument(
+        "--multihost", action="store_true",
+        help="data-parallel training, one process per device: join the "
+        "torch.distributed group named by MASTER_ADDR, MASTER_PORT, WORLD_SIZE "
+        "and RANK (as torchrun sets them; NCCL on CUDA, gloo on the CPU), with "
+        "the same arguments in every process; the batch size is the global one",
+    )
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
-    if args.multihost:
-        raise NotImplementedError(
-            "multi-process training is not in the port yet (ROADMAP.md, queue 1 item 4)"
-        )
     device = resolve_device(args.device)
+    if args.multihost:
+        from musicfpaugment_torch.parallel.mesh import init_multihost
+
+        rank = init_multihost(device=device)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        print(f"multihost: process {rank} joined the group")
 
     fix_random_seeds()
     dtype = torch.bfloat16 if args.bf16 else None

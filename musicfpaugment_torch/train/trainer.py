@@ -1,6 +1,6 @@
-"""Denoiser training: the step, the plateau LR, early stopping, checkpoints
-(port of musicfpaugment_tpu/train/trainer.py; TensorBoard and media logging
-are not ported yet).
+"""Denoiser training: the step, the plateau LR, early stopping, checkpoints,
+TensorBoard monitoring and data-parallel training (port of
+musicfpaugment_tpu/train/trainer.py).
 
 One training step: the clean batch goes to the device, ``AugmentFP`` degrades
 it there (its draws are made on the host from the trainer's own seeded
@@ -18,11 +18,20 @@ its own autocast. Parameters and Adam's state stay float32 either way.
 As in the JAX package, an epoch runs exactly ``steps`` steps and averages
 by ``steps``; a resumed run starts at the saved epoch, the last completed
 one.
+
+Data parallelism: when a ``torch.distributed`` process group is up
+(``parallel.init_multihost``), the model trains under
+``DistributedDataParallel``. Every rank reads the same global batch and the
+same draws (from the same seeded generator) and takes its slice, and the
+UNet's BatchNorm normalises by the global batch's statistics, so N ranks
+compute what one process computes on the global batch (dropout aside: its
+masks are each rank's own). The loss terms and the PSNR are reduced over
+the ranks; rank 0 writes the checkpoints and the monitoring, every rank
+resumes from the checkpoints.
 """
 
 from __future__ import annotations
 
-import copy
 import json
 import os
 import time
@@ -35,7 +44,9 @@ from torch import nn
 from musicfpaugment_torch.augment.pipeline import AugmentFP
 from musicfpaugment_torch.core.stft import magnitude_spectrogram
 from musicfpaugment_torch.device import DeviceLike, cudnn_tf32, resolve_device
+from musicfpaugment_torch.parallel.augment_sharded import shard_draws
 from musicfpaugment_torch.train.losses import l1_loss, multi_resolution_stft_loss, psnr
+from musicfpaugment_torch.train.utils import get_rank, get_world_size, is_dist_avail_and_initialized
 
 
 def spectrogram_batch(waveforms: torch.Tensor) -> torch.Tensor:
@@ -134,8 +145,12 @@ class Trainer:
     weights (PyTorch builds them at construction) and the trainer takes them
     as given: a fresh :class:`Demucs` gets ``rescale_params(model, 0.1)``
     from its caller, as the CLI does (the JAX trainer applies it at init).
-    ``example_batch`` is only checked to be a (B, T) batch. ``monitoring`` is accepted; the
-    epoch's scalars are in ``history``. ``device``: ``None`` is CUDA.
+    ``example_batch`` is only checked to be a (B, T) batch whose size the
+    number of ranks divides. With ``monitoring`` each epoch's scalars go to
+    ``writer`` and every 10th epoch a validation triplet (clean, augmented,
+    denoised) too; ``writer`` defaults to a ``SummaryWriter`` under
+    ``<checkpoint>/tb`` where ``tensorboard`` imports, and without one the
+    scalars stay in ``history`` alone. ``device``: ``None`` is CUDA.
     """
 
     def __init__(
@@ -160,6 +175,7 @@ class Trainer:
         example_batch: Optional[np.ndarray] = None,
         cache_validation_set: bool = True,
         device: DeviceLike = None,
+        writer: Any = None,
     ) -> None:
         if input_type not in ("spec", "audio"):
             raise ValueError(f"input_type must be 'spec' or 'audio', not {input_type!r}")
@@ -167,6 +183,9 @@ class Trainer:
             raise ValueError("example_batch must be clean waveforms (B, T)")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
+        self.world, self.rank = get_world_size(), get_rank()
+        if example_batch is not None:
+            self._bounds(len(example_batch))
         self.train_iter = train_iter
         self.val_iter = val_iter
         self.train_steps = train_steps
@@ -174,11 +193,12 @@ class Trainer:
         self.nb_epochs = nb_epochs
         self.checkpoint = checkpoint
         self.input_type = input_type
-        self.augmenter = self._on_device(augmenter)
+        self.augmenter = augmenter.to(self.device) if augmenter is not None else None
         self.factor_sc = factor_sc
         self.factor_mag = factor_mag
         self.save = save
         self.monitoring = monitoring
+        self.writer = writer
         self.scheduler = scheduler or ReduceLROnPlateau()
         self.early_stopping = early_stopping or EarlyStopping()
         self.base_lr = learning_rate
@@ -199,27 +219,53 @@ class Trainer:
             self.model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8
         )
         self._maybe_resume()
+        # the module the training forward runs through
+        self._train_model: nn.Module = self.model
+        if is_dist_avail_and_initialized():
+            self._wrap_ddp()
 
-    def _on_device(self, augmenter: Optional[AugmentFP]) -> Optional[AugmentFP]:
-        """The augmenter with its banks on the trainer's device, moved once."""
-        if augmenter is None or augmenter.device == self.device:
-            return augmenter
-        moved = copy.copy(augmenter)
-        moved.device = self.device
-        moved.noise_bank = augmenter.noise_bank.to(self.device)
-        moved.ir_bank = augmenter.ir_bank.to(self.device)
-        return moved
+    def _wrap_ddp(self) -> None:
+        """``DistributedDataParallel`` over the model (its gradients are
+        averaged over the ranks) with global-batch BatchNorm statistics on
+        more than one rank (on one, the local statistics are the global
+        ones); the running statistics are then the same on every rank, so
+        no buffer is broadcast."""
+        from torch.nn.parallel import DistributedDataParallel
+
+        from musicfpaugment_torch.models.unet import FlaxBatchNorm2d
+
+        for m in self.model.modules():
+            if isinstance(m, FlaxBatchNorm2d):
+                m.distributed = self.world > 1
+        self._train_model = DistributedDataParallel(
+            self.model, device_ids=[self.device] if self.device.type == "cuda" else None,
+            broadcast_buffers=False,
+        )
 
     # ------------------------------------------------------------ steps
 
-    def _loss_terms(self, clean: torch.Tensor, aug: torch.Tensor):
-        """(loss, terms, prediction, target) in the model's current mode."""
+    def _bounds(self, batch: int) -> Tuple[int, int]:
+        """This rank's slice of a global batch of ``batch`` examples."""
+        if batch % self.world:
+            raise ValueError(
+                f"batch {batch} does not divide by the {self.world} ranks: a process "
+                "cannot leave its group, so the batch size must be a multiple of the "
+                "world size (the JAX trainer shrinks its device mesh instead)"
+            )
+        b = batch // self.world
+        return self.rank * b, (self.rank + 1) * b
+
+    def _loss_terms(self, clean: torch.Tensor, aug: torch.Tensor, model: Optional[nn.Module] = None):
+        """(loss, terms, prediction, target) in the model's current mode;
+        the model's input in its parameters' dtype."""
+        model = model if model is not None else self.model
+        dtype = next(self.model.parameters()).dtype
         if self.input_type == "spec":
             clean_in = spectrogram_batch(clean)
-            pred = self.model(spectrogram_batch(aug))
+            pred = model(spectrogram_batch(aug).to(dtype))
             loss = l1_loss(pred, clean_in)
             return loss, {"loss": loss}, pred, clean_in
-        pred = self.model(aug)
+        pred = model(aug.to(dtype))
         l1 = l1_loss(pred, clean)
         sc, mag = multi_resolution_stft_loss(
             pred, clean, factor_sc=self.factor_sc, factor_mag=self.factor_mag
@@ -227,41 +273,75 @@ class Trainer:
         loss = l1 + sc + mag
         return loss, {"loss": loss, "l1_loss": l1, "sc_loss": sc, "mag_loss": mag}, pred, clean
 
-    def _make_batch(self, clean: torch.Tensor, aug: Optional[torch.Tensor], draws=None):
-        """The augmented batch: made on the device from ``draws`` (default:
-        fresh ones from the trainer's generator) when there is an augmenter,
-        else the loader's."""
+    def _make_batch(self, clean, aug, draws=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(clean, augmented) of this rank's slice of a global batch, on the
+        device. The augmented half is made there from ``draws`` of the whole
+        batch (default: fresh ones from the trainer's generator) when there
+        is an augmenter, else taken from the loader."""
+        clean = torch.as_tensor(clean)
+        lo, hi = self._bounds(clean.shape[0])
+        local = clean[lo:hi].to(self.device)
         if self.augmenter is None:
             if aug is None:
                 raise ValueError("a clean-only batch needs an augmenter")
-            return aug
+            return local, torch.as_tensor(aug)[lo:hi].to(self.device)
         if draws is None:
             draws = self.augmenter.draw(clean.shape[0], clean.shape[-1], self._generator)
-        return self.augmenter.apply(clean, draws)
+        return local, self.augmenter.apply(local, shard_draws(draws, lo, hi))
 
     def _get_batch(self, iterator) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The loader's next (clean, augmented or None) global batch,
+        float32 on the host."""
         batch = next(iterator)
         clean, aug = batch if isinstance(batch, tuple) else (batch, None)
 
-        def to_device(x):
-            return torch.as_tensor(x, dtype=torch.float32).to(self.device)
+        def as_f32(x):
+            return torch.as_tensor(x, dtype=torch.float32)
 
-        return to_device(clean), (to_device(aug) if aug is not None else None)
+        return as_f32(clean), (as_f32(aug) if aug is not None else None)
 
     def train_step(self, clean: torch.Tensor, aug: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        """One optimisation step on one batch; returns the loss terms (device
-        scalars). The gradients stay in the parameters' ``.grad``."""
-        aug = self._make_batch(clean, aug)
+        """One optimisation step on one global batch (this rank takes its
+        slice); returns this rank's loss terms (device scalars). The
+        gradients stay in the parameters' ``.grad``."""
+        clean, aug = self._make_batch(clean, aug)
         for group in self.optimizer.param_groups:
             group["lr"] = self.base_lr * self.scheduler.scale
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         with cudnn_tf32(False):
-            loss, terms, _, _ = self._loss_terms(clean, aug)
+            loss, terms, _, _ = self._loss_terms(clean, aug, self._train_model)
             loss.backward()
         self.optimizer.step()
         self.step += 1
         return {k: v.detach() for k, v in terms.items()}
+
+    def _rank_mean(self, acc: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Per-rank sums -> their mean over the ranks (equal slices: the
+        global batch's value)."""
+        if self.world == 1:
+            return acc
+        import torch.distributed as dist
+
+        keys = sorted(acc)
+        packed = torch.stack([acc[k].to(torch.float64) for k in keys])
+        dist.all_reduce(packed)
+        return {k: v / self.world for k, v in zip(keys, packed)}
+
+    def _psnr(self, pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        """:func:`psnr` of the global batch: the data range and the mean
+        squared error over every rank's slice."""
+        if self.world == 1:
+            return psnr(pred, target)
+        import torch.distributed as dist
+
+        top = torch.stack([torch.maximum(pred, target).max(), -torch.minimum(pred, target).min()])
+        dist.all_reduce(top, op=dist.ReduceOp.MAX)
+        sse = torch.stack([((pred - target) ** 2).sum().to(torch.float64),
+                           torch.tensor(float(pred.numel()), dtype=torch.float64, device=pred.device)])
+        dist.all_reduce(sse)
+        mse = (sse[0] / sse[1]).to(pred.dtype)
+        return 10.0 * torch.log10((top[0] + top[1]) ** 2 / torch.clamp(mse, min=1e-12))
 
     # ------------------------------------------------------------ epochs
 
@@ -270,37 +350,43 @@ class Trainer:
         for _ in range(self.train_steps):
             for k, v in self.train_step(*self._get_batch(self.train_iter)).items():
                 acc[k] = acc[k] + v if k in acc else v
-        return {k: float(v) / self.train_steps for k, v in acc.items()}
+        return {k: float(v) / self.train_steps for k, v in self._rank_mean(acc).items()}
 
     def _val_batches(self):
-        """(clean, aug, draws) for each validation step."""
+        """(clean, augmented) of this rank's slice for each validation
+        step."""
         if not self.cache_validation_set:
-            return (self._get_batch(self.val_iter) + (None,) for _ in range(self.val_steps))
+            return (self._make_batch(*self._get_batch(self.val_iter)) for _ in range(self.val_steps))
         if self._val_cache is None:
             self._val_cache = []
             for i in range(self.val_steps):
                 clean, aug = self._get_batch(self.val_iter)
-                draws = None
-                if self.augmenter is not None:
-                    b = clean.shape[0]
-                    draws = self.augmenter.draw_indexed(
-                        range(i * b, (i + 1) * b), clean.shape[-1], self.seed + 1
-                    )
-                self._val_cache.append((clean, aug, draws))
-        return iter(self._val_cache)
+                b = clean.shape[0]
+                lo, hi = self._bounds(b)
+                if self.augmenter is None:
+                    self._val_cache.append(self._make_batch(clean, aug) + (None,))
+                    continue
+                # example j of batch i draws from the stream keyed (seed + 1, i * b + j)
+                draws = self.augmenter.draw_indexed(
+                    range(i * b + lo, i * b + hi), clean.shape[-1], self.seed + 1
+                )
+                self._val_cache.append((clean[lo:hi].to(self.device), None, draws))
+        return (
+            (clean, aug if draws is None else self.augmenter.apply(clean, draws))
+            for clean, aug, draws in self._val_cache
+        )
 
     @torch.no_grad()
     def validation_epoch(self) -> Tuple[Dict[str, float], Dict[str, float]]:
         self.model.eval()
         acc: Dict[str, torch.Tensor] = {}
-        for clean, aug, draws in self._val_batches():
-            aug = self._make_batch(clean, aug, draws)
+        for clean, aug in self._val_batches():
             with cudnn_tf32(False):
                 _, terms, pred, target = self._loss_terms(clean, aug)
-            terms["psnr"] = psnr(pred, target)
+            terms["psnr"] = self._psnr(pred, target)
             for k, v in terms.items():
                 acc[k] = acc[k] + v if k in acc else v
-        out = {k: float(v) / self.val_steps for k, v in acc.items()}
+        out = {k: float(v) / self.val_steps for k, v in self._rank_mean(acc).items()}
         metrics = {"psnr": out.pop("psnr")}
         self.scheduler.step(out["loss"])
         return out, metrics
@@ -313,6 +399,7 @@ class Trainer:
 
     def training_loop(self) -> None:
         min_valid_loss = self.min_valid_loss
+        main = self.rank == 0
         for epoch in range(self.epoch_start, self.nb_epochs):
             if self.early_stopping.early_stop:
                 break
@@ -335,10 +422,14 @@ class Trainer:
                 print(f"Validation loss decreased from {min_valid_loss} to {val_losses['loss']}.")
                 min_valid_loss = val_losses["loss"]
                 self.min_valid_loss = min_valid_loss
-                if self.save:
+                if self.save and main:
                     self._save_checkpoint("best_epoch", epoch)
-            if self.save:
+            if self.save and main:
                 self._save_checkpoint("last_epoch", epoch)
+            if self.monitoring and main:
+                self._log_tensorboard(epoch, train_loss, val_losses, val_metrics)
+                if epoch % 10 == 0:
+                    self._log_media(epoch)
 
     # ------------------------------------------------------------ ckpt
 
@@ -387,3 +478,59 @@ class Trainer:
         self.early_stopping.load_state_dict(meta["early_stopping"])
         print(f"Minimum validation loss is {self.min_valid_loss}...")
         print(f"Epoch is {self.epoch_start}...")
+
+    # ------------------------------------------------------------ logging
+
+    @torch.no_grad()
+    def _media_triplet(self, clean: torch.Tensor, aug: torch.Tensor):
+        """(augmented, denoised) of a validation batch, the model in
+        evaluation mode: the denoised spectrogram ("spec") or waveform
+        ("audio")."""
+        self.model.eval()
+        dtype = next(self.model.parameters()).dtype
+        with cudnn_tf32(False):
+            if self.input_type == "spec":
+                return aug, self.model(spectrogram_batch(aug).to(dtype))
+            return aug, self.model(aug.to(dtype))
+
+    def _log_media(self, epoch: int) -> None:
+        """Wav and spectrogram triplets of the first validation batch: the
+        waveform triplet for "audio"; for "spec" the spectrogram triplet
+        (the UNet's output is a spectrogram)."""
+        from musicfpaugment_torch.train import callbacks
+
+        writer = self._get_tb_writer()
+        if writer is None:
+            return
+        clean, aug = next(iter(self._val_batches()))
+        aug_out, pred = self._media_triplet(clean, aug)
+        if self.input_type == "audio":
+            callbacks.monitor_audios(writer, clean, aug_out, pred, epoch, "val")
+            callbacks.monitor_specs(writer, clean, aug_out, pred, epoch, "val")
+        else:
+            callbacks.monitor_specs_precomputed(
+                writer, spectrogram_batch(clean[:3]), spectrogram_batch(aug_out[:3]), pred[:3],
+                epoch=epoch, datas="val",
+            )
+
+    def _get_tb_writer(self):
+        """``writer``, or a ``SummaryWriter`` under ``<checkpoint>/tb`` made
+        on first use; ``None`` where ``tensorboard`` does not import."""
+        if self.writer is None:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                return None
+            self.writer = SummaryWriter(os.path.join(self.checkpoint, "tb"))
+        return self.writer
+
+    def _log_tensorboard(self, epoch, train_loss, val_losses, val_metrics) -> None:
+        """The epoch's scalars (they are in ``history`` either way)."""
+        writer = self._get_tb_writer()
+        if writer is None:
+            return
+        for prefix, values in (("train", train_loss), ("val", val_losses), ("val", val_metrics)):
+            for k, v in values.items():
+                writer.add_scalar(f"{prefix}/{k}", float(v), epoch)
+        if hasattr(writer, "flush"):
+            writer.flush()

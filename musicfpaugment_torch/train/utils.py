@@ -1,8 +1,8 @@
 """Runtime utilities (port of musicfpaugment_tpu/train/utils.py).
 
 Device listing is a CUDA query. The distributed helpers answer from
-``torch.distributed`` when a process group is initialised, and as one
-process otherwise (multi-process training is not ported yet).
+``torch.distributed`` when a process group is initialised
+(``parallel.init_multihost``), and as one process otherwise.
 """
 
 from __future__ import annotations

@@ -1,6 +1,9 @@
 """The port on the card: its CUDA kernels against their plain PyTorch
 versions, and the UNet, the denoiser hook, the metrics, a training step,
-Demucs, its streamer and the sinc resampler against the CPU.
+Demucs, its streamer and the sinc resampler against the CPU; Dejavu; the
+last slice: both matchers and the sharded augmenter on a [cuda, cuda] mesh
+against one card, the CQT against the CPU, a world-1 NCCL DDP step against
+the plain step, the trainer's media logging and the demo app.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 neither JAX nor the JAX package, so it also runs where JAX is not installed:
@@ -545,3 +548,148 @@ def test_dejavu_ties_on_card(cuda_device):
     out = dm_mod._dejavu_match_impl(dm._starts, dm._rows, keys, t1, valid, valid,
                                     **dm._match_kwargs(dm._effective_mqf(16)))
     assert [o.tolist() for o in out] == [[0, 2, 0], [2, 1, 1], [10, 7, 7], [2, 2, 1]]
+
+
+# ------------------------------------------------------------ the last slice
+
+
+def _mesh_corpus(n_tracks=8, seconds=12, n_queries=16, seed=93):
+    from musicfpaugment_torch.data.synthetic import synth_tracks_device
+
+    tracks = synth_tracks_device(seed, range(n_tracks), seconds * 8000, 8000, device="cpu").numpy()
+    r = np.random.default_rng(seed)
+    starts = r.integers(0, (seconds - 8) * 8000, n_queries)
+    queries = np.stack([tracks[i % n_tracks, s : s + 8 * 8000] for i, s in enumerate(starts)])
+    return tracks, queries
+
+
+@pytest.mark.cuda
+def test_mesh_matchers_on_card_equal_one_card(cuda_device):
+    """Both matchers with mesh=[cuda, cuda]: every verdict equal to the one-card call."""
+    from musicfpaugment_torch.afp.dejavu import DejavuDeviceIndex, DejavuDeviceMatcher
+
+    tracks, queries = _mesh_corpus()
+    names = [f"t{i}" for i in range(len(tracks))]
+    ht = HashTable()
+    AudfprintPeaks(afp_settings["audfprint"], device=cuda_device).ingest_batch(ht, names, tracks)
+    mesh = [cuda_device, cuda_device]
+    single = DeviceMatcher(ht, device=cuda_device).match_waveforms(queries, shifts=4)
+    meshed = DeviceMatcher(ht, mesh=mesh)
+    assert len(meshed._replicas) == 1 and meshed.match_waveforms(queries, shifts=4) == single
+    assert sum(v[0] == "MATCH" for v in single) >= 15
+    idx = DejavuDeviceIndex()
+    idx.ingest_arrays(names, tracks, device=cuda_device)
+    dj_single = DejavuDeviceMatcher(idx, device=cuda_device).match_waveforms(queries)
+    assert DejavuDeviceMatcher(idx, mesh=mesh).match_waveforms(queries) == dj_single
+
+
+@pytest.mark.cuda
+def test_sharded_augmenter_on_card_equals_apply(cuda_device):
+    from musicfpaugment_torch.augment import AugmentFP, synthetic_banks
+    from musicfpaugment_torch.parallel import ShardedAugmenter
+    from musicfpaugment_torch.testing.parameters import default_parameters
+
+    nb, ib = synthetic_banks(sample_rate=8000, noise_row_length=8 * 8000, device=cuda_device)
+    fp = AugmentFP(nb, 8000, parameters=default_parameters, impulse_response_dir=ib, device=cuda_device)
+    _, queries = _mesh_corpus(n_queries=256)
+    x = torch.from_numpy(queries).to(cuda_device)
+    shards = ShardedAugmenter(fp, [cuda_device, cuda_device]).batch_augment(
+        x, generator=torch.Generator().manual_seed(42))
+    whole = fp.apply(x, fp.draw(256, x.shape[-1], torch.Generator().manual_seed(42)))
+    assert int((torch.cat(shards) != whole).sum()) == 0
+
+
+@pytest.mark.cuda
+def test_cqt_on_card_matches_cpu(cuda_device):
+    from musicfpaugment_torch.train.cqt import cqt_magnitude, multi_resolution_cqt_loss
+
+    x = torch.from_numpy(next(synthetic_clean_batches(4, 3 * 8000, 8000, seed=94)))
+    y = x + 0.2 * torch.from_numpy(next(synthetic_clean_batches(4, 3 * 8000, 8000, seed=95)))
+    got = cqt_magnitude(x.to(cuda_device)).cpu()
+    want = cqt_magnitude(x)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    for g, w in zip(multi_resolution_cqt_loss(x.to(cuda_device), y.to(cuda_device)),
+                    multi_resolution_cqt_loss(x, y)):
+        assert abs(float(g) - float(w)) <= 1e-5 * abs(float(w))
+
+
+@pytest.mark.cuda
+def test_ddp_world_one_nccl_step_on_card(cuda_device, tmp_path):
+    """A world-1 NCCL group: three DDP steps within 1e-6 of the plain ones
+    from one seed (on one rank the BatchNorm keeps its local statistics)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from musicfpaugment_torch.parallel import init_multihost
+    from musicfpaugment_torch.train.trainer import Trainer
+
+    clean = next(synthetic_clean_batches(8, 3 * 8000, 8000, seed=96))
+    aug = (0.7 * clean + 0.1 * np.random.default_rng(0).standard_normal(clean.shape)).astype(np.float32)
+    losses = {}
+    for label in ("plain", "ddp"):
+        if label == "ddp":
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            init_multihost(f"tcp://127.0.0.1:{port}", world_size=1, rank=0, device=cuda_device)
+        try:
+            torch.manual_seed(3)
+            tt = Trainer(UNet(1, 1, rate=0.0, base=8), iter(()), 1, iter(()), 1, 1e-3, 2,
+                         str(tmp_path / label), input_type="spec", device=cuda_device)
+            losses[label] = [float(tt.train_step(clean, aug)["loss"]) for _ in range(3)]
+            losses[label + "_module"] = type(tt._train_model).__name__
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    assert losses["ddp_module"] == "DistributedDataParallel" and losses["plain_module"] == "UNet"
+    assert max(abs(a - b) for a, b in zip(losses["plain"], losses["ddp"])) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_log_media_and_app_on_card(cuda_device, tmp_path):
+    from musicfpaugment_torch.apps import streamlit_app
+    from musicfpaugment_torch.augment import AugmentFP, synthetic_banks
+    from musicfpaugment_torch.train.trainer import Trainer
+
+    calls = []
+
+    class Writer:
+        def add_scalar(self, *a, **k):
+            calls.append(a)
+
+        def add_audio(self, *a, **k):
+            calls.append(a)
+
+        def add_image(self, tag, img, step, dataformats):
+            calls.append((tag, np.asarray(img)))
+
+    nb, ib = synthetic_banks(sample_rate=8000, noise_row_length=3 * 8000, device=cuda_device)
+    fp = AugmentFP(nb, 8000, impulse_response_dir=ib, device=cuda_device)
+    val = iter([next(synthetic_clean_batches(4, 3 * 8000, 8000, seed=97))])
+    tt = Trainer(UNet(1, 1, rate=0.05, base=8), iter(()), 1, val, 1, 1e-3, 2, str(tmp_path),
+                 input_type="spec", augmenter=fp, monitoring=True, device=cuda_device, writer=Writer())
+    tt._log_media(10)
+    assert len(calls) == 9
+    assert all(img.shape == (257, 94, 1) and np.isfinite(img).all() and img.max() <= 1.0 for _, img in calls)
+
+    class Panel:
+        def markdown(self, *a, **k):
+            pass
+
+        def slider(self, label, min_value, max_value, step, value):
+            return value
+
+        def checkbox(self, label, value):
+            return value
+
+    model = streamlit_app.define_model(Panel())
+    assert model.device.type == "cuda"
+    x = np.random.default_rng(0).uniform(-0.5, 0.5, (2, 1, 16000)).astype(np.float32)
+    import io
+
+    import scipy.io.wavfile
+
+    for out in streamlit_app.process_audio(x, [16000, 16000], model):
+        sr, y = scipy.io.wavfile.read(io.BytesIO(out))
+        assert sr == 16000 and y.shape == (16000,) and np.abs(y.astype(np.float64) / 32767).max() <= 1

@@ -195,11 +195,12 @@ def test_results_functions_write_their_json(corpus, hooks, tmp_path, monkeypatch
     _close(sequential["noisy"], got["noisy"])
 
 
-def test_settings_cli_and_defaults(monkeypatch):
+def test_settings_cli_and_defaults(monkeypatch, tmp_path):
     assert afp_settings["dejavu"] == jparams.afp_settings["dejavu"]
     assert afp_db_paths["dejavu"] == jparams.afp_db_paths["dejavu"]
     monkeypatch.setattr("sys.argv", ["dejavu_exps", "--action", "index"])
-    with pytest.raises(NotImplementedError, match="fma_preprocessing"):
+    monkeypatch.setenv("MFPA_DATASET_DIR", str(tmp_path))  # no FMA selection there
+    with pytest.raises(FileNotFoundError, match="fma_large_preprocessed.csv"):
         texps.main()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

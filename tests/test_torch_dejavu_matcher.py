@@ -272,8 +272,10 @@ def test_empty_corpus_mesh_and_overflow(corpus):
     empty = DejavuDeviceMatcher(DejavuDeviceIndex(), device="cpu")
     assert empty.match_waveforms(tracks[:2, : 2 * SR]) == [{}, {}]
     assert empty.recognize_waveforms(tracks[:1, : 2 * SR]) == [{"results": [], "match": False}]
-    with pytest.raises(NotImplementedError, match="mesh"):
-        DejavuDeviceMatcher(t_idx, mesh=object(), device="cpu")
+    meshed = DejavuDeviceMatcher(t_idx, mesh=["cpu", "cpu"])
+    assert meshed.device == torch.device("cpu")
+    with pytest.raises(ValueError, match="not divisible by mesh size 2"):
+        meshed.match_waveforms(tracks[:3, : 2 * SR])
     dm = DejavuDeviceMatcher(t_idx, device="cpu")
     with pytest.warns(UserWarning, match="8-peak budget"):
         dm.match_waveforms(tracks[:2, : 2 * SR], max_peaks=8)

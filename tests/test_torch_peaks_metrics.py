@@ -195,16 +195,17 @@ def test_identification_rate_with_a_waveform_denoiser(files, table, tmp_path, mo
 
 
 @pytest.mark.parametrize("action,error,match", [
-    ("index", NotImplementedError, "fma_preprocessing"),
+    ("index", FileNotFoundError, "fma_large_preprocessed.csv"),
     ("identification_rate", ValueError, "requires spec_denoiser"),
     ("peaks_metrics", ValueError, "requires spec_denoiser"),
 ])
-def test_main_actions(monkeypatch, action, error, match):
-    """``index`` waits for the FMA metadata module; the other two actions
-    build a UNet analyzer without a denoiser, as the JAX CLI does, and the
-    analyzer refuses it (on a machine without a card the device check comes
-    first)."""
+def test_main_actions(monkeypatch, tmp_path, action, error, match):
+    """``index`` reads the FMA selection, absent from an empty dataset
+    directory; the other two actions build a UNet analyzer without a
+    denoiser, as the JAX CLI does, and the analyzer refuses it (on a machine
+    without a card the device check comes first)."""
     monkeypatch.setattr("sys.argv", ["audfprint_exps", "--action", action, "--model", "unet"])
+    monkeypatch.setenv("MFPA_DATASET_DIR", str(tmp_path))
     if action != "index" and not torch.cuda.is_available():
         error, match = RuntimeError, "device='cpu'"
     with pytest.raises(error, match=match):

@@ -174,7 +174,7 @@ def test_load_reads_wav_npy_arrays_and_names_its_suffixes(corpus, tmp_path):
     np.testing.assert_array_equal(t_an._load(str(tmp_path / "a.npy")), np.arange(6, dtype=np.float32))
     assert t_an._load(np.ones((1, 4))).shape == (4,)
     assert t_an._load(torch.ones(1, 4, dtype=torch.float64)).dtype == torch.float32
-    with pytest.raises(ValueError, match=r"\.npy, \.pkl and \.wav"):
+    with pytest.raises(ValueError, match=r"\.npy, \.pkl, \.wav and \.mp3"):
         t_an._load(str(tmp_path / "song.flac"))
 
 
@@ -232,7 +232,10 @@ def test_identification_rate_raises_for_a_denoiser_and_defaults_to_the_card(corp
             texps.identification_rate_results(query_paths=corpus["dirs"], dbpath=corpus["t_ht"])
 
 
-def test_generate_queries_main_rejects_the_unported_selection(monkeypatch):
+def test_generate_queries_main_rejects_the_unported_selection(monkeypatch, tmp_path):
+    """``--queries cleans`` reads the FMA selection (tests/test_torch_fma.py
+    runs it), absent from an empty dataset directory."""
     monkeypatch.setattr("sys.argv", ["generate_queries", "--queries", "cleans"])
-    with pytest.raises(NotImplementedError, match="fma_preprocessing"):
+    monkeypatch.setenv("MFPA_DATASET_DIR", str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="fma_large_preprocessed.csv"):
         tgen.main()

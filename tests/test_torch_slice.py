@@ -155,11 +155,23 @@ def test_port_imports_no_jax_or_jax_package():
                    "afp/dejavu/database", "afp/dejavu/sqlite_database", "afp/dejavu/dejavu",
                    "afp/dejavu/file_recognizer", "afp/dejavu/matcher_device",
                    "afp/dejavu/postgres_database", "afp/dejavu/pglib", "afp/dejavu/pg_shim",
-                   "testing/dejavu_exps"):
+                   "testing/dejavu_exps", *NO_PANDAS):
         assert f"musicfpaugment_torch/{module}.py" in scanned, module
     for path in paths:
         for mod in _imports(path):
             assert mod.split(".")[0] not in banned, (path, mod)
+    # the card's machine has no pandas: the modules of the last slice use none
+    for module in NO_PANDAS:
+        for mod in _imports(os.path.join(ROOT, "musicfpaugment_torch", f"{module}.py")):
+            assert mod.split(".")[0] != "pandas", (module, mod)
+
+
+NO_PANDAS = (
+    "data/native", "data/mp3_encode", "testing/fma_preprocessing", "utils/config", "train/cqt",
+    "train/visualisation", "train/callbacks", "train/generate_audios", "parallel/__init__",
+    "parallel/mesh", "parallel/augment_sharded", "apps/__init__", "apps/streamlit_app",
+    "testing/generate_queries", "testing/audfprint_exps", "testing/dejavu_exps",
+)
 
 
 def test_lane_tier_is_bit_identical_to_full_width(slice_state):

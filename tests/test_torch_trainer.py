@@ -496,9 +496,13 @@ def test_train_cli_runs_demucs_with_its_rate_rescale_and_checkpoints(tmp_path, m
     assert set(meta) == META_KEYS and meta["epoch"] == 2
 
 
-@pytest.mark.parametrize("flag,item", [(["--multihost"], "item 4")])
-def test_cli_options_not_ported_raise(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
+@pytest.mark.parametrize("flag,item", [(["--multihost"], "MASTER_ADDR")])
+def test_cli_options_not_ported_raise(flag, item, monkeypatch):
+    """``--multihost`` joins a process group from the torchrun variables
+    (tests/test_torch_parallel.py runs it); without them it raises."""
+    for name in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(ValueError, match=item):
         ttrain.main(["--device", "cpu"] + flag)
 
 
