@@ -7,8 +7,9 @@ end on the card, clean and degraded queries, its two denoisers (the UNet on
 spectrograms, Demucs on waveforms) and their training, the Dejavu path (the
 CSR index, the batched matcher, the SQLite oracle, both denoiser arms), then
 the FMA selection indexed and identified from audio files by both systems,
-the parallel layer, monitoring and the app, through the entry points a user
-calls:
+the parallel layer, monitoring and the app, and last the reference-scale
+proofs of both systems on a 106,574-track corpus and the end-to-end demo,
+through the entry points a user calls:
 
 1. device  - the card's name and power limit;
 2. build   - compiles the CUDA kernels from ``musicfpaugment_torch/csrc``;
@@ -16,8 +17,9 @@ calls:
              card tensors, at the shapes the path gives it (a 128-query
              batch of 8 s crops; the 512 rows of that batch's 4 stacked
              shifts, 251 and 250 columns; a 64-track ingest batch of
-             20-30 s tracks, mixed lengths), with times, bounds and mismatch
-             counts, which must be 0;
+             20-30 s tracks, mixed lengths; a 128-track batch of the
+             reference-scale ingest, 30 s, 938 columns), with times, bounds
+             and mismatch counts, which must be 0;
 4. ingest  - 10,000 synthetic 20-30 s tracks, generated on the card, indexed
              by ``create_fp_database`` into a full 2^20 x 100 ``HashTable``;
 5. match   - ``compute_accuracy_batched`` (batch 128, 4 shifts) over 1,024
@@ -170,7 +172,31 @@ calls:
              CQT loss at 128 x 3 s (card against CPU 1e-5) and
              ``generate_audios.main`` on the checkpoint;
 34. app     - the demo app's ``define_model`` with a stand-in panel and
-             ``process_audio`` of 4 x 8 s at 16 kHz on the card.
+             ``process_audio`` of 4 x 8 s at 16 kHz on the card;
+35. scale_ingest - ``testing/scale_proof``'s ``ingest`` stage over 106,574
+             storage-free 30 s tracks (FMA-large's size, generated on the
+             card) into a full 2^20 x 100 table, in two invocations (the
+             first stopped by ``--minutes``, the second resuming from the
+             saved table and state): tracks/s and every statistic the stage
+             writes (the table must saturate); one batch profiled, the host
+             store included;
+36. scale_match - its ``match`` stage, 1,024 queries x 11 conditions, 4
+             shifts, ``--banks dcase`` (clean accuracy >= 0.99): accuracy and
+             queries/s per condition, ``eff_depth``, table MB, upload s; then
+             ``train`` cut to 2 epochs x 4 steps and the UNet arm with the mix
+             rule over 256 queries of ``cleans`` and ``default_parameters``,
+             and the same for Demucs over 128 queries of ``bn_m10``;
+37. scale_oracle - its ``oracle`` stage, 32 queries at 4 shifts: 32/32;
+38. scale_peaks - its ``peaks`` stage over 256 queries of each condition,
+             then its ``report``;
+39-41. dejavu_scale_ingest / _match / _oracle - ``testing/dejavu_scale`` on
+             the same corpus at the hash cap 1,024: rows, depth, index MB,
+             ``finalize_s``; 1,024 queries x 11 conditions (clean >= 0.99)
+             and the UNet arm over 256; the Python ``align_matches`` oracle
+             32/32; no prune launch;
+42. full_pipeline_demo - ``testing/full_pipeline_demo`` at its quick size
+             (16 tracks, 2 epochs, 16 queries): the three accuracies and the
+             peak F1 per condition.
 
 Every phase prints a JSON line. Launch counters are zeroed just before
 ingest and read after match: both kernels must have launched in each (once
@@ -178,15 +204,17 @@ per ingest batch, once per match batch whatever the number of shifts). They
 are zeroed again before the augmented conditions, before the denoised
 accuracies, before the peak metrics, before the trained-denoiser runs,
 before each Demucs-denoised run, before the FMA index, before the FMA
-identification and before the mesh match, and read after each.
+identification, before the mesh match and before each scale path (the
+ingest's two invocations, the match, each denoised arm, the oracle, the
+peaks, the demo), and read after each.
 The line before the last is the kernel table, the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
 
 In the kernel table ``ms``, ``plain_ms`` and ``bound_ms`` are those of the
 shape the match path launches (512 stacked rows), ``ms`` the launch on the
 time-major tensors as the path calls it and ``wrapper_ms`` the (B, F, C)
-wrapper with its transposed copies; ``query_*`` and ``ingest_*`` are the same
-readings at the other two shapes.
+wrapper with its transposed copies; ``query_*``, ``ingest_*`` and
+``scale_ingest_*`` are the same readings at the other three shapes.
 """
 
 from __future__ import annotations
@@ -247,6 +275,9 @@ from musicfpaugment_torch.models.demucs import STOP_AT
 from musicfpaugment_torch.models.streamer import DemucsStreamer
 from musicfpaugment_torch.parallel import ShardedAugmenter, init_multihost
 from musicfpaugment_torch.testing import audfprint_exps, fma_preprocessing, generate_queries
+from musicfpaugment_torch.testing import dejavu_scale as DS
+from musicfpaugment_torch.testing import full_pipeline_demo
+from musicfpaugment_torch.testing import scale_proof as SP
 from musicfpaugment_torch.testing import dejavu_exps as dj_exps
 from musicfpaugment_torch.testing.audfprint_exps import (
     PEAKS_METRICS,
@@ -2237,6 +2268,228 @@ def app_phase(dev) -> None:
         fail(f"app: peak {max(peaks)} above 1")
 
 
+# ---------------------------------------------------------------- scale
+
+# Phases 35-43: the reference-scale proofs through their stage functions,
+# as their CLIs call them: the corpus is 106,574 storage-free 30 s tracks
+# (FMA-large's size), seed 1234 (the CLIs' default)
+SCALE_TRACKS = 106_574
+SCALE_SEED = SP.parser().get_default("corpus_seed")
+SCALE_BATCH = 128
+SCALE_FIRST_MINUTES = 0.5  # the first ingest invocation stops here, the second resumes
+SCALE_QUERIES = 1024
+SCALE_SHIFTS = 4
+SCALE_DENOISED_QUERIES = 256
+SCALE_DEMUCS_QUERIES = 128
+SCALE_PEAKS_QUERIES = 256
+SCALE_TRAIN = ("--train-epochs", "2", "--train-steps", "4")  # the JAX defaults cut from 20 x 16
+SCALE_DEMUCS_TRAIN_BATCH = 16  # the JAX proof's Demucs run
+SCALE_ORACLE_N = 32
+SCALE_INGEST_STATS = (
+    "total_hashes", "stored_hashes", "reservoir_dropped_pct", "buckets_at_depth",
+    "buckets_over_depth", "max_bucket_count", "ingest_tracks_per_sec", "hash_overflow",
+)
+SCALE_MATCH_KEYS = ("accuracy", "accuracy_den", "accuracy_mix", "accuracy_den_demucs",
+                    "accuracy_mix_demucs", "n_queries", "match_qps", "match_den_qps",
+                    "match_den_demucs_qps", "wall_s")
+DJ_SCALE_KEYS = ("total_rows", "total_rows_stored", "bucket_depth", "index_mb", "rows_dropped",
+                 "finalize_s", "index_upload_s", "hash_overflow", "ingest_tracks_per_sec")
+DEMO_ARGS = ("--tracks", "16", "--epochs", "2", "--queries", "16")  # its quick size
+
+
+def scale_args(module, stage: str, workdir: str, *flags):
+    return module.parser().parse_args([stage, "--workdir", workdir, "--device", "cuda", *flags])
+
+
+def counted(label: str, launches: dict, fn):
+    """``fn()`` with the prune counters zeroed just before and read just
+    after into ``launches[label]``; returns (result, seconds)."""
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    launches[label] = dict(K.LAUNCHES)
+    return out, time.perf_counter() - t0
+
+
+def require_launches(label: str, launches: dict) -> None:
+    for k, n in launches[label].items():
+        if n <= 0:
+            fail(f"{k} kernel did not launch in {label}")
+
+
+def quiet_report(fn, args) -> str:
+    """A report stage with its printed copy of the state swallowed."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        fn(args)
+    return args.out
+
+
+def conditions_line(state: dict) -> dict:
+    return {c: {k: v[k] for k in SCALE_MATCH_KEYS if k in v}
+            for c, v in state["conditions"].items()}
+
+
+def scale_phases(dev, work: str) -> dict:
+    """Phases 35-43. Returns the prune launches of each path."""
+    sp_dir, dj_dir = os.path.join(work, "scale_proof"), os.path.join(work, "dejavu_scale")
+    launches: dict = {}
+    match_flags = ("--shifts", str(SCALE_SHIFTS), "--banks", "dcase")
+
+    # ---- 35. scale_ingest: two invocations, the second resumes the first
+    def ingest():
+        SP.stage_ingest(scale_args(SP, "ingest", sp_dir, "--minutes", str(SCALE_FIRST_MINUTES)))
+        first = SP.load_state(sp_dir).get("next_track", 0)
+        SP.stage_ingest(scale_args(SP, "ingest", sp_dir, "--minutes", "60"))
+        return first
+
+    first, seconds = counted("scale_ingest", launches, ingest)
+    state = SP.load_state(sp_dir)
+    emit({"phase": "scale_ingest", "tracks": SCALE_TRACKS, "batch": SCALE_BATCH,
+          "invocations": 2, "first_invocation_tracks": first, "seconds": seconds,
+          "tracks_per_s": SCALE_TRACKS / seconds,
+          **{k: state.get(k) for k in SCALE_INGEST_STATS}, "launches": launches["scale_ingest"]})
+    if not state.get("ingest_done") or not 0 < first < SCALE_TRACKS:
+        fail(f"scale_ingest: done {state.get('ingest_done')}, first invocation {first} tracks")
+    if not state["buckets_over_depth"] > 0 or state["hash_overflow"]:
+        fail(f"scale_ingest: the table did not saturate or a track overflowed: {state}")
+    require_launches("scale_ingest", launches)
+    tracks = SP.corpus_tracks(SCALE_SEED, dev)
+    scratch = HashTable()
+
+    def one_batch():
+        th, counts, _ = SP.ingest_hashes(tracks(np.arange(SCALE_BATCH)))
+        th, counts = th.cpu().numpy(), counts.cpu().numpy()
+        for j in range(SCALE_BATCH):
+            scratch.store(f"t{j:06d}", th[j, : counts[j]])
+
+    emit(profile_call("scale ingest batch, 128 x 30 s, stored in a 2^20 x 100 table", one_batch))
+    del scratch
+
+    # ---- 36. scale_match: the 11 conditions, then the UNet and Demucs arms
+    _, seconds = counted("scale_match", launches, lambda: SP.stage_match(scale_args(
+        SP, "match", sp_dir, "--queries", str(SCALE_QUERIES), *match_flags)))
+    state = SP.load_state(sp_dir)
+    emit({"phase": "scale_match", "queries": SCALE_QUERIES, "shifts": SCALE_SHIFTS,
+          "batch": SCALE_BATCH, "seconds": seconds, "eff_depth": state["eff_depth"],
+          "table_mb": state["table_mb"], "table_upload_s": state["table_upload_s"],
+          "conditions": conditions_line(state), "launches": launches["scale_match"]})
+    if len(state["conditions"]) != 11:
+        fail(f"scale_match ran {sorted(state['conditions'])}")
+    if state["conditions"]["cleans"]["accuracy"] < MIN_CLEAN_ACCURACY:
+        fail(f"scale_match: clean accuracy {state['conditions']['cleans']['accuracy']}")
+    require_launches("scale_match", launches)
+
+    for model, flags, queries, conds in (
+        ("unet", (), SCALE_DENOISED_QUERIES, "cleans,default_parameters"),
+        ("demucs", ("--train-batch", str(SCALE_DEMUCS_TRAIN_BATCH)), SCALE_DEMUCS_QUERIES, "bn_m10"),
+    ):
+        t0 = time.perf_counter()
+        SP.stage_train(scale_args(SP, "train", sp_dir, "--model", model, "--banks", "dcase",
+                                  *SCALE_TRAIN, *flags))
+        train_s = time.perf_counter() - t0
+        label = f"scale_{model}_denoised"
+        _, seconds = counted(label, launches, lambda: SP.stage_match(scale_args(
+            SP, "match", sp_dir, "--queries", str(queries), "--conditions", conds, "--denoise",
+            "--denoise-model", model, *match_flags)))
+        state = SP.load_state(sp_dir)
+        key = "denoiser_train" if model == "unet" else "denoiser_train_demucs"
+        line = conditions_line(state)
+        emit({"phase": label, "checkpoint": f"scale_proof train, {model}, 2 epochs x 4 steps",
+              "train": state[key], "train_s": train_s, "queries": queries, "seconds": seconds,
+              "conditions": {c: line[c] for c in conds.split(",")}, "launches": launches[label]})
+        sfx = "" if model == "unet" else "_demucs"
+        for c in conds.split(","):
+            row = state["conditions"][c]
+            if row["n_queries"] != queries or not all(
+                    0.0 <= row[k + sfx] <= 1.0 for k in ("accuracy_den", "accuracy_mix")):
+                fail(f"{label}: {c} {row}")
+        require_launches(label, launches)
+    if state["conditions"]["cleans"]["accuracy_mix"] < MIN_CLEAN_ACCURACY:
+        fail(f"scale_unet_denoised: clean mix accuracy {state['conditions']['cleans']}")
+
+    # ---- 37. scale_oracle and 38. scale_peaks
+    _, seconds = counted("scale_oracle", launches, lambda: SP.stage_oracle(scale_args(
+        SP, "oracle", sp_dir, *match_flags, "--oracle-n", str(SCALE_ORACLE_N))))
+    state = SP.load_state(sp_dir)
+    emit({"phase": "scale_oracle", "queries": SCALE_ORACLE_N, "shifts": SCALE_SHIFTS,
+          "agreement": state["oracle_agreement"], "seconds": seconds,
+          "launches": launches["scale_oracle"]})
+    if state["oracle_agreement"] != f"{SCALE_ORACLE_N}/{SCALE_ORACLE_N}":
+        fail(f"scale_oracle: {state['oracle_agreement']}")
+    _, seconds = counted("scale_peaks", launches, lambda: SP.stage_peaks(scale_args(
+        SP, "peaks", sp_dir, "--queries", str(SCALE_PEAKS_QUERIES), "--banks", "dcase")))
+    state = SP.load_state(sp_dir)
+    peaks = {c: {k: v[k] for k in v if k.startswith(("peaks_", "psnr_"))}
+             for c, v in state["conditions"].items() if c != "cleans"}
+    emit({"phase": "scale_peaks", "queries": SCALE_PEAKS_QUERIES, "seconds": seconds,
+          "conditions": peaks, "launches": launches["scale_peaks"]})
+    if len(peaks) != 10 or not all(math.isfinite(x) for row in peaks.values() for x in row.values()):
+        fail(f"scale_peaks: {peaks}")
+    report = quiet_report(SP.stage_report, scale_args(
+        SP, "report", sp_dir, "--out", os.path.join(work, "results.json")))
+    with open(report) as f:
+        emit({"phase": "scale_report", "keys": sorted(json.load(f))})
+    require_launches("scale_oracle", launches)
+    require_launches("scale_peaks", launches)
+
+    # ---- 39-41. Dejavu on the same corpus: no prune kernel on its path
+    prune_before = dict(K.LAUNCHES)
+    t0 = time.perf_counter()
+    DS.stage_ingest(scale_args(DS, "ingest", dj_dir, "--minutes", "60"))
+    ingest_s = time.perf_counter() - t0
+    dj_flags = ("--banks", "dcase")
+    t0 = time.perf_counter()
+    DS.stage_match(scale_args(DS, "match", dj_dir, "--queries", str(SCALE_QUERIES), *dj_flags))
+    match_s = time.perf_counter() - t0
+    state = DS.load_state(dj_dir)
+    emit({"phase": "dejavu_scale_ingest", "tracks": SCALE_TRACKS, "seconds": ingest_s,
+          "tracks_per_s": SCALE_TRACKS / ingest_s, "hash_cap": state["hash_cap"],
+          **{k: state.get(k) for k in DJ_SCALE_KEYS}})
+    emit({"phase": "dejavu_scale_match", "queries": SCALE_QUERIES, "seconds": match_s,
+          "conditions": conditions_line(state)})
+    if state["conditions"]["cleans"]["accuracy"] < MIN_CLEAN_ACCURACY:
+        fail(f"dejavu_scale_match: clean accuracy {state['conditions']['cleans']['accuracy']}")
+    t0 = time.perf_counter()
+    DS.stage_match(scale_args(DS, "match", dj_dir, "--queries", str(SCALE_DENOISED_QUERIES),
+                              "--conditions", "cleans,default_parameters", "--denoise", "--rerun",
+                              "--unet-pkl", os.path.join(sp_dir, "unet.pt"), *dj_flags))
+    state = DS.load_state(dj_dir)
+    line = conditions_line(state)
+    emit({"phase": "dejavu_scale_unet_denoised", "checkpoint": "scale_proof train, unet",
+          "queries": SCALE_DENOISED_QUERIES, "seconds": time.perf_counter() - t0,
+          "finalize_s": state["finalize_s"],
+          "conditions": {c: line[c] for c in ("cleans", "default_parameters")}})
+    t0 = time.perf_counter()
+    DS.stage_oracle(scale_args(DS, "oracle", dj_dir, *dj_flags, "--oracle-n", str(SCALE_ORACLE_N)))
+    state = DS.load_state(dj_dir)
+    quiet_report(DS.stage_report, scale_args(
+        DS, "report", dj_dir, "--out", os.path.join(work, "dejavu_results.json")))
+    emit({"phase": "dejavu_scale_oracle", "queries": SCALE_ORACLE_N,
+          "agreement": state["oracle_agreement"], "seconds": time.perf_counter() - t0,
+          "prune_launches_before": prune_before, "prune_launches_after": dict(K.LAUNCHES)})
+    if state["oracle_agreement"] != f"{SCALE_ORACLE_N}/{SCALE_ORACLE_N}":
+        fail(f"dejavu_scale_oracle: {state['oracle_agreement']}")
+    if dict(K.LAUNCHES) != prune_before:
+        fail("the Dejavu scale phases launched a prune kernel")
+
+    # ---- 42. the end-to-end demo at its quick size
+    out_dir = os.path.join(work, "demo")
+    demo, seconds = counted("demo", launches, lambda: full_pipeline_demo.main(
+        [*DEMO_ARGS, "--out", out_dir]))
+    emit({"phase": "full_pipeline_demo", "args": list(DEMO_ARGS), "seconds": seconds,
+          "train_val_loss": demo["train_val_loss"],
+          "accuracy": {c: demo[c]["accuracy"] for c in ("cleans", "bn_0", "full_hard", "reverb")},
+          "f1": {c: [demo[c]["peaks"]["f1_score_no_den"], demo[c]["peaks"]["f1_den"]]
+                 for c in ("bn_0", "full_hard", "reverb")},
+          "launches": launches["demo"]})
+    if demo["cleans"]["accuracy"]["No Denoising"] < MIN_CLEAN_ACCURACY:
+        fail(f"full_pipeline_demo: {demo['cleans']}")
+    require_launches("demo", launches)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -2294,11 +2547,17 @@ def main() -> None:
     x_stacked, vf_stacked, n_cols = P.stacked_prune_input([q_batch[:, o:] for o in offs])
     if tuple(x_stacked.shape) != (SHIFTS * QUERY_BATCH, 256, 251) or n_cols != [251, 250, 250, 250]:
         fail(f"unexpected stacked shape {tuple(x_stacked.shape)}, columns {n_cols}")
+    # a batch of the reference-scale ingest: 128 tracks of 30 s, 938 columns
+    x_scale = P.prune_input(SP.corpus_tracks(SCALE_SEED, dev)(np.arange(SCALE_BATCH)))
+    if tuple(x_scale.shape) != (SCALE_BATCH, 256, 938):
+        fail(f"unexpected scale ingest shape {tuple(x_scale.shape)}")
     at_query = check_kernels("query", x_query, None, sm_mhz)
     at_stacked = check_kernels("stacked", x_stacked, vf_stacked, sm_mhz)
     at_ingest = check_kernels("ingest", x_ingest, vf_ing, sm_mhz)
+    at_scale = check_kernels("scale_ingest", x_scale, None, sm_mhz)
+    del x_scale
     emit({"phase": "kernels", "query": at_query, "stacked": at_stacked,
-          "ingest": at_ingest})
+          "ingest": at_ingest, "scale_ingest": at_scale})
 
     # ---- 4. ingest (launch counters zeroed just before the main path)
     K.reset_launch_counts()
@@ -2632,9 +2891,17 @@ def main() -> None:
     emit({"phase": "last_slice_phases", "seconds": time.perf_counter() - t_last})
     tmp_dir.cleanup()
 
+    # ---- 35-42. the reference-scale proofs and the end-to-end demo
+    t_scale = time.perf_counter()
+    del tracks, unseen_tracks, queries, unseen, aug_default
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        launches_scale = scale_phases(dev, work)
+    emit({"phase": "scale_phases", "seconds": time.perf_counter() - t_scale})
+
     kernels = []
     for kname, line in (("forward_prune", 60), ("backward_prune", 113)):
-        q, i, st = at_query[kname], at_ingest[kname], at_stacked[kname]
+        q, i, st, sc = at_query[kname], at_ingest[kname], at_stacked[kname], at_scale[kname]
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "musicfpaugment_torch/csrc/peaks_prune.cu",
@@ -2642,7 +2909,8 @@ def main() -> None:
             "launches": launches[kname] + launches_conditions[kname]
             + launches_denoised[kname] + launches_metrics[kname] + launches_trained[kname]
             + seeded_den["launches"][kname] + trained_den["launches"][kname]
-            + launches_fma["index"][kname] + launches_fma["identify"][kname] + launches_mesh[kname],
+            + launches_fma["index"][kname] + launches_fma["identify"][kname] + launches_mesh[kname]
+            + sum(n[kname] for n in launches_scale.values()),
             "launches_ingest": launches_ingest[kname],
             "launches_match": launches_match[kname],
             "launches_conditions": launches_conditions[kname],
@@ -2654,7 +2922,9 @@ def main() -> None:
             "launches_fma_index": launches_fma["index"][kname],
             "launches_fma_identify": launches_fma["identify"][kname],
             "launches_mesh_match": launches_mesh[kname],
-            "max_abs_err": max(q["max_abs_err"], i["max_abs_err"], st["max_abs_err"]),
+            **{f"launches_{label}": n[kname] for label, n in launches_scale.items()},
+            "max_abs_err": max(q["max_abs_err"], i["max_abs_err"], st["max_abs_err"],
+                               sc["max_abs_err"]),
             "ms": st["kernel_ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
             "library_ms": None, "shape": "stacked",
@@ -2663,6 +2933,9 @@ def main() -> None:
             "query_plain_ms": q["plain_ms"], "query_bound_ms": q["bound_ms"],
             "ingest_kernel_ms": i["kernel_ms"], "ingest_wrapper_ms": i["ms"],
             "ingest_plain_ms": i["plain_ms"], "ingest_bound_ms": i["bound_ms"],
+            "scale_ingest_kernel_ms": sc["kernel_ms"], "scale_ingest_wrapper_ms": sc["ms"],
+            "scale_ingest_plain_ms": sc["plain_ms"], "scale_ingest_bound_ms": sc["bound_ms"],
+            "scale_ingest_bound_by": sc["bound_by"],
         })
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi_line, flush=True)

@@ -6,6 +6,10 @@ from musicfpaugment_torch.afp.audfprint.analyzer import (
     landmarks2hashes,
 )
 from musicfpaugment_torch.afp.audfprint.hash_table import HashTable
+from musicfpaugment_torch.afp.audfprint.landmarks import (
+    hashes_from_mask,
+    hashes_from_mask_np,
+)
 from musicfpaugment_torch.afp.audfprint.matcher import Matcher
 from musicfpaugment_torch.afp.audfprint.matcher_device import DeviceMatcher
 from musicfpaugment_torch.afp.audfprint.peaks import find_peaks_batch
@@ -18,4 +22,6 @@ __all__ = [
     "Matcher",
     "DeviceMatcher",
     "find_peaks_batch",
+    "hashes_from_mask",
+    "hashes_from_mask_np",
 ]

@@ -210,11 +210,13 @@ class HashTable:
             if name:
                 print_fn(str(name) + " (" + str(int(count)) + " hashes)")
 
-    def save(self, name: str) -> None:
-        """Atomic compressed npz write (the JAX package's format)."""
+    def save(self, name: str, compress: bool = True) -> None:
+        """Atomic npz write (the JAX package's format). ``compress=False``
+        for large tables: a full 2^20 x 100 table is ~420 MB of near-random
+        uint32 that deflate takes long over for almost no gain."""
         path = name if name.endswith(".npz") else name + ".npz"
         tmp = path + ".tmp.npz"
-        np.savez_compressed(
+        (np.savez_compressed if compress else np.savez)(
             tmp,
             table=self.table,
             counts=self.counts,

@@ -1,10 +1,13 @@
 """Peak-pair landmarks and 20-bit hash packing (port of
 musicfpaugment_tpu/afp/audfprint/landmarks.py).
 
-Batched: peaks come out of the (B, F, C) masks in (column, bin) order into a
-fixed-size padded array, each peak looks at the next ``window`` peaks, and
-the fanout cap ("first ``MAXPAIRSPERPEAK`` valid candidates") is a running
-count. Hashes are bit-identical to the JAX package's.
+Peaks come out of a (F, C) mask, or each mask of a (B, F, C) batch, in
+(column, bin) order into a fixed-size padded array, each peak looks at the
+next ``window`` peaks, and the fanout cap ("first ``MAXPAIRSPERPEAK`` valid
+candidates") is a running count. The single-example chain
+(:func:`extract_peaks`, :func:`pair_landmarks`, :func:`pair_hashes`,
+:func:`hashes_from_mask`) and the batched :func:`hashes_from_masks_batched`
+give the same hashes; both are bit-identical to the JAX package's.
 """
 
 from __future__ import annotations
@@ -35,6 +38,124 @@ def _first_nonzero(flat: torch.Tensor, size: int) -> torch.Tensor:
     out = torch.full((B, size + 1), -1, dtype=torch.long, device=flat.device)
     out.scatter_(1, tgt, torch.where(tgt < size, pos, -1))
     return out[:, :size]
+
+
+def extract_peaks(mask: torch.Tensor, max_peaks: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(F, C) boolean mask -> (cols, bins, valid) int32/int32/bool, padded
+    to ``max_peaks`` and sorted by (column, bin); padding slots hold (0, 0)."""
+    F, C = mask.shape
+    flat = mask.transpose(0, 1).reshape(1, -1)  # column-major
+    idx = _first_nonzero(flat, max_peaks)[0]
+    valid = idx >= 0
+    safe = torch.where(valid, idx, 0)
+    return (safe // F).to(torch.int32), (safe % F).to(torch.int32), valid
+
+
+def _pair_grid(
+    cols: torch.Tensor, bins: torch.Tensor, valid: torch.Tensor, window: int,
+    mindt: int, targetdt: int, targetdf: int, maxpairs: int,
+):
+    """The (P, window) candidate grid of peak i against peak i + 1 + w:
+    (bin of the candidate, dt, df, selected)."""
+    P = cols.shape[0]
+    dev = cols.device
+    j = torch.arange(P, device=dev)[:, None] + torch.arange(1, window + 1, device=dev)[None, :]
+    in_range = j < P
+    j_safe = torch.where(in_range, j, P - 1)
+    bin_j = bins[j_safe]
+    dt = cols[j_safe] - cols[:, None]
+    df = bin_j - bins[:, None]
+    ok = (
+        valid[:, None]
+        & (valid[j_safe] & in_range)
+        & (dt >= mindt)
+        & (dt < targetdt)
+        & (df.abs() < targetdf)
+    )
+    # "first maxpairs valid candidates" in j order
+    rank = torch.cumsum(ok.to(torch.int32), dim=1)
+    return bin_j, dt, df, ok & (rank <= maxpairs)
+
+
+def pair_landmarks(
+    cols: torch.Tensor,
+    bins: torch.Tensor,
+    valid: torch.Tensor,
+    window: int = 320,
+    mindt: int = MINDT,
+    targetdt: int = TARGETDT,
+    targetdf: int = TARGETDF,
+    maxpairs: int = MAXPAIRSPERPEAK,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pair each peak with up to ``maxpairs`` of the next ``window`` peaks:
+    (landmarks (P, window, 4) int32 [col, bin1, bin2, dt], selected
+    (P, window) bool)."""
+    bin_j, dt, _, selected = _pair_grid(
+        cols, bins, valid, window, mindt, targetdt, targetdf, maxpairs
+    )
+    landmarks = torch.stack(
+        [cols[:, None].expand_as(dt), bins[:, None].expand_as(dt), bin_j, dt], dim=-1
+    ).to(torch.int32)
+    return landmarks, selected
+
+
+def pair_hashes(
+    cols: torch.Tensor,
+    bins: torch.Tensor,
+    valid: torch.Tensor,
+    window: int = 320,
+    mindt: int = MINDT,
+    targetdt: int = TARGETDT,
+    targetdf: int = TARGETDF,
+    maxpairs: int = MAXPAIRSPERPEAK,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`pair_landmarks` with the 20-bit hash packed from dt and df
+    directly: (times (P, W), hashes (P, W), selected (P, W))."""
+    _, dt, df, selected = _pair_grid(
+        cols, bins, valid, window, mindt, targetdt, targetdf, maxpairs
+    )
+    h = ((bins[:, None] & 255) << 12) | ((df & 63) << 6) | (dt & 63)
+    return cols[:, None].expand_as(h), h, selected
+
+
+def landmarks_to_hashes(landmarks: torch.Tensor) -> torch.Tensor:
+    """(..., 4) [col, bin1, bin2, dt] -> (..., 2) [time, 20-bit hash]."""
+    time, bin1, bin2, dt = landmarks.unbind(-1)
+    h = ((bin1 & 255) << 12) | (((bin2 - bin1) & 63) << 6) | (dt & 63)
+    return torch.stack([time, h], dim=-1)
+
+
+def hashes_from_mask(
+    mask: torch.Tensor, max_peaks: int, max_hashes: int, window: int = 320
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(F, C) peak mask -> ((max_hashes, 2) int32 (time, hash) rows sorted
+    by (time, hash) with the invalid rows last, valid (max_hashes,) bool
+    marking the first of each distinct row). A padding row holds the values
+    of the grid's first cell, as in the JAX package."""
+    cols, bins, valid = extract_peaks(mask, max_peaks)
+    times, hashes, selected = pair_hashes(cols, bins, valid, window=window)
+    th = torch.stack([times.reshape(-1), hashes.reshape(-1)], dim=-1)
+    # the selected pairs, in grid order, into a fixed-size buffer
+    idx = _first_nonzero(selected.reshape(1, -1), max_hashes)[0]
+    lvalid = idx >= 0
+    th = th[torch.where(lvalid, idx, 0)]
+    # sort by (time, hash): a stable sort by hash, then by time
+    order_h = torch.sort(th[:, 1], stable=True).indices
+    th, lvalid = th[order_h], lvalid[order_h]
+    order_t = torch.sort(torch.where(lvalid, th[:, 0], _I32_MAX), stable=True).indices
+    th, lvalid = th[order_t], lvalid[order_t]
+    same = (th[1:, 0] == th[:-1, 0]) & (th[1:, 1] == th[:-1, 1]) & lvalid[1:]
+    unique = torch.cat([torch.ones(1, dtype=torch.bool, device=th.device), ~same])
+    return th, lvalid & unique
+
+
+def _lookahead(x: torch.Tensor, window: int, fill) -> torch.Tensor:
+    """(B, P) -> (B, P, window) float32, out[b, i, w] = x[b, i + 1 + w]
+    (``fill`` past the end); the values (columns, bins, flags) are exact in
+    float32, which the JAX package's sliding-window patches return."""
+    B, P = x.shape
+    xpad = torch.cat([x, torch.full((B, window), fill, dtype=x.dtype, device=x.device)], dim=1)
+    return xpad[:, 1:].unfold(1, window, 1)[:, :P].to(torch.float32)
 
 
 def sort_dedup_hashes(

@@ -155,7 +155,8 @@ def test_port_imports_no_jax_or_jax_package():
                    "afp/dejavu/database", "afp/dejavu/sqlite_database", "afp/dejavu/dejavu",
                    "afp/dejavu/file_recognizer", "afp/dejavu/matcher_device",
                    "afp/dejavu/postgres_database", "afp/dejavu/pglib", "afp/dejavu/pg_shim",
-                   "testing/dejavu_exps", *NO_PANDAS):
+                   "testing/dejavu_exps", "testing/scale_proof", "testing/dejavu_scale",
+                   "testing/full_pipeline_demo", *NO_PANDAS):
         assert f"musicfpaugment_torch/{module}.py" in scanned, module
     for path in paths:
         for mod in _imports(path):
@@ -171,6 +172,7 @@ NO_PANDAS = (
     "train/visualisation", "train/callbacks", "train/generate_audios", "parallel/__init__",
     "parallel/mesh", "parallel/augment_sharded", "apps/__init__", "apps/streamlit_app",
     "testing/generate_queries", "testing/audfprint_exps", "testing/dejavu_exps",
+    "testing/scale_proof", "testing/dejavu_scale", "testing/full_pipeline_demo",
 )
 
 

@@ -210,6 +210,23 @@ def make_identity_unet(model):
     return model.eval()
 
 
+def identity_unet_with_bias(bias=0.05):
+    """A ``base=8`` UNet that returns its input plus ``bias``: a denoised
+    spectrogram gets a floor, which moves the peaks of quiet regions."""
+    from musicfpaugment_torch.models import UNet
+
+    model = make_identity_unet(UNet(1, 1, base=8))
+    with torch.no_grad():
+        model.outc.bias.fill_(bias)
+    return model
+
+
+def tracks_from(waves):
+    """A scale proof's track source over given (N, T) waveforms; indices
+    past the end (a last batch's padding) wrap around."""
+    return lambda idx: torch.from_numpy(waves[np.asarray(idx) % len(waves)])
+
+
 # ------------------------------------------------------------------ Demucs
 
 
