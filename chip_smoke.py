@@ -13,6 +13,12 @@ through the entry points a user calls:
 
 1. device  - the card's name and power limit;
 2. build   - compiles the CUDA kernels from ``musicfpaugment_torch/csrc``;
+2a. prng   - the threefry functions of ``core/prng.py`` on the card against
+             the CPU, 2^20 draws each: ``split``, ``fold_in``, ``uniform``,
+             ``randint`` and ``bernoulli`` with 0 mismatching words,
+             ``normal`` within 2 ulp; the card's ms for each;
+2b. corpus_card_vs_cpu - 64 tracks of the scale corpus (30 s, seed 1234)
+             built on the card and on the CPU: within 1e-5 of the peak;
 3. kernels - each prune kernel against its plain PyTorch version on the same
              card tensors, at the shapes the path gives it (a 128-query
              batch of 8 s crops; the 512 rows of that batch's 4 stacked
@@ -38,6 +44,10 @@ through the entry points a user calls:
              (within 0.2 dB of the drawn one);
              the chain's variants, its stages and the two convolution routes
              timed;
+7a. queries_card_vs_cpu - the scale proof's first 64 frozen-seed-42
+             ``default_parameters`` queries (plan, crops of the corpus,
+             augmentation with the phase 6 banks) on the card and on the
+             CPU: within 1e-4;
 8. conditions - ``compute_accuracy_batched`` on each condition's augmented
              queries with the ``DeviceMatcher`` of phase 5: accuracy and
              queries/s per condition;
@@ -151,7 +161,7 @@ through the entry points a user calls:
              ``read_wav_batch``'s decode rate over them;
 31. fma_eval - an FMA tree in a temporary directory: ``tracks.csv`` in
              FMA's layout (16 genres x 512 tracks of 30 s), every track's
-             path as the path list, and the first 512 selected tracks written
+             path as the path list, and the first 256 selected tracks written
              as 30 s synthetic files at 22.05 kHz (mp3; WAV where a codec is
              missing); then through the entry points the preprocessing
              ``main``, ``audfprint_exps.main(["--action", "index"])`` into a
@@ -180,23 +190,34 @@ through the entry points a user calls:
              saved table and state): tracks/s and every statistic the stage
              writes (the table must saturate); one batch profiled, the host
              store included;
-36. scale_match - its ``match`` stage, 1,024 queries x 11 conditions, 4
+36. scale_match - its ``match`` stage, 512 queries x 11 conditions, 4
              shifts, ``--banks dcase`` (clean accuracy >= 0.99): accuracy and
              queries/s per condition, ``eff_depth``, table MB, upload s; then
              ``train`` cut to 2 epochs x 4 steps and the UNet arm with the mix
-             rule over 256 queries of ``cleans`` and ``default_parameters``,
+             rule over 128 queries of ``cleans`` and ``default_parameters``,
              and the same for Demucs over 128 queries of ``bn_m10``;
 37. scale_oracle - its ``oracle`` stage, 32 queries at 4 shifts: 32/32;
 38. scale_peaks - its ``peaks`` stage over 256 queries of each condition,
              then its ``report``;
 39-41. dejavu_scale_ingest / _match / _oracle - ``testing/dejavu_scale`` on
              the same corpus at the hash cap 1,024: rows, depth, index MB,
-             ``finalize_s``; 1,024 queries x 11 conditions (clean >= 0.99)
-             and the UNet arm over 256; the Python ``align_matches`` oracle
-             32/32; no prune launch;
+             ``finalize_s`` (one load and finalize, whose CSR the match, the
+             UNet arm and the oracle share); 512 queries x 11 conditions
+             (clean >= 0.99) and the UNet arm over 128; the Python
+             ``align_matches`` oracle 32/32; no prune launch;
+41a. cap_sweep - ``testing/dejavu_cap_sweep``: a 10,000-track ingest with
+             no cap, re-finalized under the caps 64, 1,024 and none, 512
+             queries x ``cleans,default_parameters`` under each: the CSR
+             figures, accuracy and queries/s per cap (rows dropped falling
+             with the cap, none uncapped, uncapped clean accuracy >= 0.99);
 42. full_pipeline_demo - ``testing/full_pipeline_demo`` at its quick size
              (16 tracks, 2 epochs, 16 queries): the three accuracies and the
-             peak F1 per condition.
+             peak F1 per condition;
+44. big_bank - ``train/big_bank_train``: the base=8 UNet step, batch 32 x 3 s,
+             with a 256 MB noise bank against the 32-row toy bank: median
+             step ms, peak memory, MB allocated per step (the big bank's
+             within a tenth of its size of the toy bank's: it is not copied
+             per step) and the bank's storage unmoved.
 
 Every phase prints a JSON line. Launch counters are zeroed just before
 ingest and read after match: both kernels must have launched in each (once
@@ -260,7 +281,7 @@ from musicfpaugment_torch.apps import streamlit_app
 from musicfpaugment_torch.augment import AugmentFP, dcase_shaped_banks
 from musicfpaugment_torch.augment import transforms as T
 from musicfpaugment_torch.convert import demucs_denoiser, unet_denoiser
-from musicfpaugment_torch.core import filters
+from musicfpaugment_torch.core import filters, prng
 from musicfpaugment_torch.core import resample as RS
 from musicfpaugment_torch.core.convolve import fft_convolve
 from musicfpaugment_torch.data import mp3_encode, native
@@ -275,6 +296,7 @@ from musicfpaugment_torch.models.demucs import STOP_AT
 from musicfpaugment_torch.models.streamer import DemucsStreamer
 from musicfpaugment_torch.parallel import ShardedAugmenter, init_multihost
 from musicfpaugment_torch.testing import audfprint_exps, fma_preprocessing, generate_queries
+from musicfpaugment_torch.testing import dejavu_cap_sweep as CS
 from musicfpaugment_torch.testing import dejavu_scale as DS
 from musicfpaugment_torch.testing import full_pipeline_demo
 from musicfpaugment_torch.testing import scale_proof as SP
@@ -291,7 +313,7 @@ from musicfpaugment_torch.testing.parameters import (
     queries_paths,
     test_pipelines_parameters,
 )
-from musicfpaugment_torch.train import cqt, generate_audios
+from musicfpaugment_torch.train import big_bank_train, cqt, generate_audios
 from musicfpaugment_torch.train import parameters as TP
 from musicfpaugment_torch.train.trainer import EarlyStopping, ReduceLROnPlateau, Trainer
 from musicfpaugment_torch.utils import StageTimer
@@ -358,7 +380,13 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
 
+START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; phase lines carry ``at_s``, the script's clock."""
+    if isinstance(obj, dict) and "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -379,6 +407,12 @@ def gpu_ms(fn, reps: int) -> float:
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def _timed(fn):
+    """(fn(), its seconds)."""
+    t0 = time.perf_counter()
+    return fn(), time.perf_counter() - t0
 
 
 def track_lengths(n: int, seed: int) -> np.ndarray:
@@ -518,7 +552,7 @@ def achieved_snr(fp, clean, out) -> dict:
     pair gives the two gains and 20 log10(rms(a clean) / rms(b noise)) is
     the SNR that the mix reached, beside the one drawn."""
     n = clean.shape[0]
-    draws = fp.draw_indexed(range(n), clean.shape[-1], AUGMENT_SEED)[2]
+    draws = fp.draw_indexed(range(n), clean.shape[-1], prng.key(AUGMENT_SEED))[2]
     noise = fp.noise_bank.crop(
         draws["scene"], draws["row_u"], draws["offset"], clean.shape[-1]).double()
     x, y = clean.double(), out.double()
@@ -536,7 +570,7 @@ def achieved_snr(fp, clean, out) -> dict:
 def stage_times(fp, x) -> dict:
     """Device ms of each stage of ``fp``'s chain on one batch, stage by
     stage on the output of the stage before, and of the two fused pairs."""
-    draws = fp.draw(x.shape[0], x.shape[-1], torch.Generator().manual_seed(1))
+    draws = fp.draw(x.shape[0], x.shape[-1], prng.key(1))
     tfms = fp.pipeline.transforms
     banks = {"noise_bank": fp.noise_bank, "ir_bank": fp.ir_bank}
     out, inputs = {}, [x]
@@ -550,7 +584,7 @@ def stage_times(fp, x) -> dict:
         lambda: T.fused_lowpass_highpass(inputs[5], draws[5], draws[6], tfms[5], tfms[6]), 5)
     out["draw_host_ms"] = wall_ms(lambda: fp.draw(x.shape[0], x.shape[-1]), 5)
     out["draw_indexed_host_ms"] = wall_ms(
-        lambda: fp.draw_indexed(range(x.shape[0]), x.shape[-1], AUGMENT_SEED), 5)
+        lambda: fp.draw_indexed(range(x.shape[0]), x.shape[-1], prng.key(AUGMENT_SEED)), 5)
     return out
 
 
@@ -1781,7 +1815,7 @@ FMA_GENRES = (
     "Spoken", "Blues", "Easy Listening",
 )
 FMA_TRACKS_PER_GENRE = 512  # 8,192 rows: every genre kept (< 900), all six exceptions popped
-FMA_WRITTEN = 512  # K: the first selected tracks, written as files (the rest are absent)
+FMA_WRITTEN = 256  # K: the first selected tracks, written as files (the rest are absent); cut from 512 for the time limit
 FMA_SR = 22050  # libmp3lame's 128 kbit/s, as tests/make_mp3_fixture.py encodes
 FMA_SECONDS = 30  # FMA-large's clips
 FMA_SEED = 2024
@@ -2075,9 +2109,8 @@ def parallel_phase(dev, noise_bank, ir_bank, queries, ht, dm, dj_idx) -> dict:
     mesh = [dev, dev]
     clean = torch.stack(queries[:MESH_QUERIES])
     sa = ShardedAugmenter(fp, mesh)
-    sharded = torch.cat(sa.batch_augment(clean, generator=torch.Generator().manual_seed(AUGMENT_SEED)))
-    whole = fp.apply(clean, fp.draw(MESH_QUERIES, clean.shape[-1],
-                                    torch.Generator().manual_seed(AUGMENT_SEED)))
+    sharded = torch.cat(sa.batch_augment(clean, key=prng.key(AUGMENT_SEED)))
+    whole = fp.apply(clean, fp.draw(MESH_QUERIES, clean.shape[-1], prng.key(AUGMENT_SEED)))
     aug_mismatch = int((sharded != whole).sum())
     q = whole  # degraded queries for the matchers
     single = dm.match_waveforms(q, shifts=SHIFTS)
@@ -2190,7 +2223,7 @@ def monitoring_phase(dev, noise_bank, ir_bank, ckpt_root: str, tmp: str) -> None
     torch.cuda.empty_cache()
 
     x = torch.from_numpy(val_batches[0][:CQT_BATCH]).to(dev)
-    y = fp.apply(x, fp.draw(CQT_BATCH, x.shape[-1], torch.Generator().manual_seed(0)))
+    y = fp.apply(x, fp.draw(CQT_BATCH, x.shape[-1], prng.key(0)))
     cqt_ms = gpu_ms(lambda: cqt.multi_resolution_cqt_loss(y, x), 3)
     card = [float(v) for v in cqt.multi_resolution_cqt_loss(y[:CQT_CPU_EXAMPLES], x[:CQT_CPU_EXAMPLES])]
     cpu = [float(v) for v in cqt.multi_resolution_cqt_loss(y[:CQT_CPU_EXAMPLES].cpu(),
@@ -2277,9 +2310,9 @@ SCALE_TRACKS = 106_574
 SCALE_SEED = SP.parser().get_default("corpus_seed")
 SCALE_BATCH = 128
 SCALE_FIRST_MINUTES = 0.5  # the first ingest invocation stops here, the second resumes
-SCALE_QUERIES = 1024
+SCALE_QUERIES = 512  # cut from 1,024 to keep the script within half its time limit
 SCALE_SHIFTS = 4
-SCALE_DENOISED_QUERIES = 256
+SCALE_DENOISED_QUERIES = 128  # cut from 256, as SCALE_QUERIES
 SCALE_DEMUCS_QUERIES = 128
 SCALE_PEAKS_QUERIES = 256
 SCALE_TRAIN = ("--train-epochs", "2", "--train-steps", "4")  # the JAX defaults cut from 20 x 16
@@ -2293,8 +2326,149 @@ SCALE_MATCH_KEYS = ("accuracy", "accuracy_den", "accuracy_mix", "accuracy_den_de
                     "accuracy_mix_demucs", "n_queries", "match_qps", "match_den_qps",
                     "match_den_demucs_qps", "wall_s")
 DJ_SCALE_KEYS = ("total_rows", "total_rows_stored", "bucket_depth", "index_mb", "rows_dropped",
-                 "finalize_s", "index_upload_s", "hash_overflow", "ingest_tracks_per_sec")
+                 "index_upload_s", "hash_overflow", "ingest_tracks_per_sec")
 DEMO_ARGS = ("--tracks", "16", "--epochs", "2", "--queries", "16")  # its quick size
+
+
+# ------------------------------------------------------------ draws
+
+PRNG_KEYS = 1024  # x 1,024 draws a key: 2^20 draws a function
+CORPUS_TRACKS = 64
+QUERY_CHECK_N = 64
+MAX_CORPUS_CARD_VS_CPU = 1e-5  # of the peak
+MAX_QUERIES_CARD_VS_CPU = 1e-4
+MAX_NORMAL_ULP = 2
+
+
+def _ulps(a: np.ndarray, b: np.ndarray) -> float:
+    return float((np.abs(a - b) / np.spacing(np.maximum(np.abs(a), np.abs(b)))).max())
+
+
+def prng_phase(dev) -> dict:
+    """The threefry functions on the card against the CPU over 2^20 draws
+    each: every bit equal but ``normal``'s (the devices' ``log1p``), and
+    the card's time for them."""
+    keys = {d: prng.split(prng.key(AUGMENT_SEED, d), PRNG_KEYS) for d in ("cpu", dev)}
+    shape = (1024,)
+    fns = {
+        "split": lambda k: prng.split(k, 1024 // 2),
+        "fold_in": lambda k: prng.fold_in(k[:, None], torch.arange(1024, device=k.device)),
+        "uniform": lambda k: prng.uniform(k, shape, -3.5, 80.25),
+        "randint": lambda k: prng.randint(k, shape, 0, 64001),
+        "bernoulli": lambda k: prng.bernoulli(k, 0.3, shape),
+        "normal": lambda k: prng.normal(k, shape),
+    }
+    line = {"phase": "prng", "keys": PRNG_KEYS, "draws_per_function": PRNG_KEYS * 1024}
+    for name, fn in fns.items():
+        want, got = fn(keys["cpu"]).numpy(), fn(keys[dev]).cpu().numpy()
+        entry = {"card_ms": gpu_ms(lambda: fn(keys[dev]), 3), "elements": int(want.size)}
+        if name == "normal":
+            entry["max_ulp"] = _ulps(got, want)
+            entry["max_abs"] = float(np.abs(got - want).max())
+            if not entry["max_ulp"] <= MAX_NORMAL_ULP:
+                fail(f"prng: normal on the card is {entry['max_ulp']} ulp from the CPU")
+        else:
+            entry["mismatches"] = int((got != want).sum())
+            if entry["mismatches"]:
+                fail(f"prng: {name} differs between the card and the CPU: {entry}")
+        line[name] = entry
+    emit(line)
+    return line
+
+
+def corpus_phase(dev) -> dict:
+    """64 tracks of the scale corpus (30 s) built on the card and on the
+    CPU from the same (seed, index) keys."""
+    idx = np.arange(CORPUS_TRACKS) * 1663 % SCALE_TRACKS
+    t0 = time.perf_counter()
+    on_card = synth_tracks_device(SCALE_SEED, idx, 30 * SR, SR, device=dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = synth_tracks_device(SCALE_SEED, idx, 30 * SR, SR, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    err = float((on_card.cpu() - on_cpu).abs().max()) / float(on_cpu.abs().max())
+    line = {"phase": "corpus_card_vs_cpu", "tracks": CORPUS_TRACKS, "seconds": 30,
+            "seed": SCALE_SEED, "max_err_of_peak": err, "card_s": card_s, "cpu_s": cpu_s}
+    emit(line)
+    if not err <= MAX_CORPUS_CARD_VS_CPU:
+        fail(f"corpus: the card's tracks are {err} of the peak from the CPU's")
+    return line
+
+
+def queries_phase(dev, noise_bank, ir_bank) -> dict:
+    """The scale proof's first 64 frozen-seed-42 ``default_parameters``
+    queries (plan, crops of the corpus, augmentation) made on the card and
+    on the CPU with the same banks."""
+    qidx, offsets = SP.query_plan(SCALE_TRACKS, QUERY_CHECK_N, 42)
+    params = test_pipelines_parameters["default_parameters"]
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        fp = AugmentFP(noise_bank, SR, parameters=params, impulse_response_dir=ir_bank, device=d)
+        fp.freeze_parameters(AUGMENT_SEED)
+        t0 = time.perf_counter()
+        (_, _, crops), = SP.condition_batches(
+            SP.corpus_tracks(SCALE_SEED, d), fp, qidx, offsets, QUERY_CHECK_N)
+        out[d.type] = (crops.cpu(), time.perf_counter() - t0)
+    err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+    line = {"phase": "queries_card_vs_cpu", "queries": QUERY_CHECK_N,
+            "condition": "default_parameters", "seed": AUGMENT_SEED, "max_abs": err,
+            "card_s": out["cuda"][1], "cpu_s": out["cpu"][1]}
+    emit(line)
+    if not err <= MAX_QUERIES_CARD_VS_CPU:
+        fail(f"queries: the card's frozen-seed crops are {err} from the CPU's")
+    return line
+
+
+CAP_SWEEP_TRACKS = 10_000
+CAP_SWEEP_CAPS = "64,1024,inf"
+CAP_SWEEP_QUERIES = 512
+CAP_SWEEP_CONDITIONS = "cleans,default_parameters"
+BIG_BANK_MB = 256
+BIG_BANK_STEPS = 8
+
+
+def cap_sweep_phase(work: str) -> dict:
+    """``testing/dejavu_cap_sweep`` on a 10,000-track ingest: per cap the
+    CSR figures and accuracy and queries/s per condition; the rows dropped
+    fall as the cap rises, the uncapped index drops none."""
+    cs_dir = os.path.join(work, "cap_sweep")
+    flags = ("--workdir", cs_dir, "--device", "cuda")
+    t0 = time.perf_counter()
+    CS.main(["ingest", "--tracks", str(CAP_SWEEP_TRACKS), "--minutes", "60", *flags])
+    ingest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        report = CS.stage_sweep(CS.parser().parse_args(
+            ["sweep", "--caps", CAP_SWEEP_CAPS, "--queries", str(CAP_SWEEP_QUERIES),
+             "--conditions", CAP_SWEEP_CONDITIONS, *flags]))
+    line = {"phase": "cap_sweep", "tracks": CAP_SWEEP_TRACKS, "queries": CAP_SWEEP_QUERIES,
+            "ingest_s": ingest_s, "sweep_s": time.perf_counter() - t0,
+            "total_rows_ingested": report["total_rows_ingested"], "caps": report["caps"]}
+    emit(line)
+    caps = [report["caps"][c] for c in CAP_SWEEP_CAPS.split(",")]
+    dropped = [c["rows_dropped"] for c in caps]
+    if dropped != sorted(dropped, reverse=True) or dropped[-1] != 0:
+        fail(f"cap_sweep: rows dropped per cap {dropped}")
+    if caps[-1]["conditions"]["cleans"]["accuracy"] < MIN_CLEAN_ACCURACY:
+        fail(f"cap_sweep: uncapped clean accuracy {caps[-1]['conditions']['cleans']}")
+    return line
+
+
+def big_bank_phase(dev) -> dict:
+    """``train/big_bank_train``: the base=8 UNet step, batch 32 x 3 s, with a
+    256 MB noise bank against the 32-row toy bank. The bank stays the same
+    tensor and is not copied per step: the step allocates no more with it
+    than with the toy bank, give or take a tenth of the bank."""
+    t0 = time.perf_counter()
+    out = big_bank_train.run(BIG_BANK_MB, 32, BIG_BANK_STEPS, dev)
+    line = {"phase": "big_bank", "seconds": time.perf_counter() - t0, **out}
+    emit(line)
+    big, toy = out["big"], out["toy"]
+    extra = big["allocated_mb_per_step"] - toy["allocated_mb_per_step"]
+    if not abs(extra) <= 0.1 * big["bank_mb"]:
+        fail(f"big_bank: {extra} MB more allocated per step with the big bank")
+    return line
 
 
 def scale_args(module, stage: str, workdir: str, *flags):
@@ -2440,13 +2614,21 @@ def scale_phases(dev, work: str) -> dict:
     DS.stage_ingest(scale_args(DS, "ingest", dj_dir, "--minutes", "60"))
     ingest_s = time.perf_counter() - t0
     dj_flags = ("--banks", "dcase")
+    # one load and finalize of the 70M-row index, shared by the match, the
+    # UNet arm and the oracle (each stage run alone does its own)
     t0 = time.perf_counter()
-    DS.stage_match(scale_args(DS, "match", dj_dir, "--queries", str(SCALE_QUERIES), *dj_flags))
+    dj_index = DS.load_index(dj_dir)
+    dj_index.finalize()
+    finalize_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    DS.stage_match(scale_args(DS, "match", dj_dir, "--queries", str(SCALE_QUERIES), *dj_flags),
+                   index=dj_index)
     match_s = time.perf_counter() - t0
     state = DS.load_state(dj_dir)
     emit({"phase": "dejavu_scale_ingest", "tracks": SCALE_TRACKS, "seconds": ingest_s,
           "tracks_per_s": SCALE_TRACKS / ingest_s, "hash_cap": state["hash_cap"],
-          **{k: state.get(k) for k in DJ_SCALE_KEYS}})
+          **{k: state.get(k) for k in DJ_SCALE_KEYS}, "finalize_s": finalize_s,
+          "finalize_shared_by": ["match", "unet_denoised", "oracle"]})
     emit({"phase": "dejavu_scale_match", "queries": SCALE_QUERIES, "seconds": match_s,
           "conditions": conditions_line(state)})
     if state["conditions"]["cleans"]["accuracy"] < MIN_CLEAN_ACCURACY:
@@ -2454,15 +2636,17 @@ def scale_phases(dev, work: str) -> dict:
     t0 = time.perf_counter()
     DS.stage_match(scale_args(DS, "match", dj_dir, "--queries", str(SCALE_DENOISED_QUERIES),
                               "--conditions", "cleans,default_parameters", "--denoise", "--rerun",
-                              "--unet-pkl", os.path.join(sp_dir, "unet.pt"), *dj_flags))
+                              "--unet-pkl", os.path.join(sp_dir, "unet.pt"), *dj_flags),
+                   index=dj_index)
     state = DS.load_state(dj_dir)
     line = conditions_line(state)
     emit({"phase": "dejavu_scale_unet_denoised", "checkpoint": "scale_proof train, unet",
           "queries": SCALE_DENOISED_QUERIES, "seconds": time.perf_counter() - t0,
-          "finalize_s": state["finalize_s"],
           "conditions": {c: line[c] for c in ("cleans", "default_parameters")}})
     t0 = time.perf_counter()
-    DS.stage_oracle(scale_args(DS, "oracle", dj_dir, *dj_flags, "--oracle-n", str(SCALE_ORACLE_N)))
+    DS.stage_oracle(scale_args(DS, "oracle", dj_dir, *dj_flags, "--oracle-n", str(SCALE_ORACLE_N)),
+                    index=dj_index)
+    del dj_index
     state = DS.load_state(dj_dir)
     quiet_report(DS.stage_report, scale_args(
         DS, "report", dj_dir, "--out", os.path.join(work, "dejavu_results.json")))
@@ -2471,6 +2655,7 @@ def scale_phases(dev, work: str) -> dict:
           "prune_launches_before": prune_before, "prune_launches_after": dict(K.LAUNCHES)})
     if state["oracle_agreement"] != f"{SCALE_ORACLE_N}/{SCALE_ORACLE_N}":
         fail(f"dejavu_scale_oracle: {state['oracle_agreement']}")
+    cap_sweep_phase(work)
     if dict(K.LAUNCHES) != prune_before:
         fail("the Dejavu scale phases launched a prune kernel")
 
@@ -2512,11 +2697,25 @@ def main() -> None:
           "max_sm_mhz": sm_mhz, "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
+    # host work that needs neither the kernels nor the card runs beside the
+    # phases that do: nvcc, and the host numpy of the banks of phase 6
+    pool = cf.ThreadPoolExecutor(3)
+    building = pool.submit(_timed, lambda: _build.build(verbose=True))
+    banking = pool.submit(_timed, lambda: dcase_shaped_banks(hours=BANK_HOURS, device="cpu"))
+    pool.submit(training_batches)  # cached: the training phases take them from there
+
+    # ---- 2a. prng and 2b. the corpus: the card's draws are the CPU's
+    t0 = time.perf_counter()
+    prng_phase(dev)
+    corpus_phase(dev)
+    emit({"phase": "draw_checks", "seconds": time.perf_counter() - t0})
+
     # ---- 2. build
     t0 = time.perf_counter()
-    lib = _build.build(verbose=True)
+    lib, build_s = building.result()
     _build.library()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": lib})
+    emit({"phase": "build", "seconds": build_s, "waited_s": time.perf_counter() - t0,
+          "library": lib})
 
     # ---- corpus and queries (set-up, on the card)
     t0 = time.perf_counter()
@@ -2630,10 +2829,13 @@ def main() -> None:
 
     # ---- 6. banks: the paper-shaped synthetic noise and IR pools
     t0 = time.perf_counter()
-    noise_bank, ir_bank = dcase_shaped_banks(hours=BANK_HOURS, device=dev)
+    (noise_bank, ir_bank), banks_s = banking.result()
+    pool.shutdown()
+    noise_bank, ir_bank = noise_bank.to(dev), ir_bank.to(dev)
     torch.cuda.synchronize()
     emit({
-        "phase": "banks", "seconds": time.perf_counter() - t0, "hours": BANK_HOURS,
+        "phase": "banks", "seconds": banks_s, "waited_and_uploaded_s": time.perf_counter() - t0,
+        "hours": BANK_HOURS,
         "noise_rows": noise_bank.num_clips, "row_length": noise_bank.row_length,
         "scenes": int(noise_bank.scene_starts.shape[0]), "irs": ir_bank.num_irs,
         "ir_length": int(ir_bank.irs.shape[1]),
@@ -2672,17 +2874,17 @@ def main() -> None:
                       ("exact", {"fast_chain": False})):
         fp = AugmentFP(noise_bank, SR, parameters=default, impulse_response_dir=ir_bank,
                        device=dev, **kw)
-        draws = fp.draw_indexed(range(AUGMENT_BATCH), x256.shape[-1], AUGMENT_SEED)
+        draws = fp.draw_indexed(range(AUGMENT_BATCH), x256.shape[-1], prng.key(AUGMENT_SEED))
         variants[label] = {
             "apply_ms": wall_ms(lambda: fp.apply(x256, draws), 5),
             "draw_and_apply_ms": wall_ms(
-                lambda: fp.batch_augment_indexed(x256, range(AUGMENT_BATCH), AUGMENT_SEED), 5),
+                lambda: fp.batch_augment_indexed(x256, range(AUGMENT_BATCH), prng.key(AUGMENT_SEED)), 5),
         }
         if label == "fast_unfused":
             stages = stage_times(fp, x256)
     on_card = AugmentFP(noise_bank, SR, parameters=default, impulse_response_dir=ir_bank, device=dev)
     on_cpu = AugmentFP(noise_bank, SR, parameters=default, impulse_response_dir=ir_bank, device="cpu")
-    draws16 = on_card.draw_indexed(range(16), clean.shape[-1], AUGMENT_SEED)
+    draws16 = on_card.draw_indexed(range(16), clean.shape[-1], prng.key(AUGMENT_SEED))
     card_vs_cpu = float(
         (on_card.apply(clean[:16], draws16).cpu() - on_cpu.apply(clean[:16].cpu(), draws16)).abs().max())
     emit({"phase": "augment_detail", "parameters": "default_parameters",
@@ -2692,6 +2894,8 @@ def main() -> None:
     if not card_vs_cpu <= MAX_CARD_VS_CPU:
         fail(f"the chain on the card is {card_vs_cpu} away from the CPU on the same draws")
     del on_cpu
+    # ---- 7a. the frozen-seed queries made on the card and on the CPU
+    queries_phase(dev, noise_bank, ir_bank)
 
     # ---- 8. conditions: identify every condition's queries
     q_names = [names[int(t)] for t in q_ids]
@@ -2898,6 +3102,9 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as work:
         launches_scale = scale_phases(dev, work)
     emit({"phase": "scale_phases", "seconds": time.perf_counter() - t_scale})
+
+    # ---- 44. the training step with a 256 MB noise bank
+    big_bank_phase(dev)
 
     kernels = []
     for kname, line in (("forward_prune", 60), ("backward_prune", 113)):

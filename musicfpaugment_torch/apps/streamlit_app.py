@@ -123,12 +123,13 @@ def define_model(st, device: DeviceLike = None):
     return AugmentFP(noise_bank, SAMPLE_RATE, parameters, impulse_response_dir=ir_bank, device=device)
 
 
-def process_audio(audios: np.ndarray, sample_rates, model, generator: Optional[torch.Generator] = None):
+def process_audio(audios: np.ndarray, sample_rates, model, key: Optional[torch.Tensor] = None):
     """One ``batch_augment`` call over the (B, 1, T) batch on the
-    augmenter's device -> one 16-bit wav file's bytes per example."""
+    augmenter's device under ``key`` (default: the augmenter's stream) ->
+    one 16-bit wav file's bytes per example."""
     import scipy.io.wavfile
 
-    aug = model.batch_augment(torch.as_tensor(audios, dtype=torch.float32), generator=generator)
+    aug = model.batch_augment(torch.as_tensor(audios, dtype=torch.float32), key=key)
     outputs = []
     for rate, aug_audio in zip(sample_rates, aug.cpu().numpy()):
         buf = io.BytesIO()

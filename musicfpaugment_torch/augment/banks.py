@@ -7,8 +7,9 @@ drawn integer. The builders are numpy and give the same arrays as the JAX
 package's for the same inputs and seed.
 
 Sampling is split in two, as everywhere in the port's augmenter: ``draw``
-makes the per-example scene/row/offset (or IR index) from uniforms, and
-``crop`` / ``take`` do the gathers for given draws.
+makes the per-example scene/row/offset (or IR index) under a threefry key,
+as the JAX bank's ``sample`` does, and ``crop`` / ``take`` do the gathers
+for given draws.
 
 * Background noise: a scene is picked uniformly, then a row of that scene,
   then a crop offset; rows shorter than the row length were extended at
@@ -28,6 +29,7 @@ from typing import Dict, List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from musicfpaugment_torch.core import prng
 from musicfpaugment_torch.core.utils import rms_normalize
 from musicfpaugment_torch.data.audio_io import (
     Audio,
@@ -38,9 +40,15 @@ from musicfpaugment_torch.data.audio_io import (
 from musicfpaugment_torch.device import DeviceLike, resolve_device
 
 
-def _index_from_uniform(u: torch.Tensor, n: int) -> torch.Tensor:
-    """Uniform [0, 1) -> integer in [0, n), int64."""
-    return torch.clamp((u * n).to(torch.int64), max=max(n - 1, 0))
+def draw_shape(key: torch.Tensor, batch: int) -> tuple:
+    """The sample shape under ``key``: the whole batch under one key, one
+    draw under each key of a (batch, 2) batch of keys."""
+    return (batch,) if key.ndim == 1 else (1,)
+
+
+def _randint(key: torch.Tensor, batch: int, high: int) -> torch.Tensor:
+    """(batch,) int32 in [0, high) under ``key``."""
+    return prng.randint(key, draw_shape(key, batch), 0, high).reshape(batch)
 
 
 @dataclass
@@ -72,14 +80,21 @@ class NoiseBank:
             self.sample_rate,
         )
 
-    def draw(self, u: torch.Tensor, num_samples: int) -> Dict[str, torch.Tensor]:
-        """(B, 3) uniforms -> scene-uniform scene, row uniform and crop
-        offset of B crops."""
-        max_off = max(self.row_length - num_samples, 0)
+    def draw(self, key: torch.Tensor, batch: int, num_samples: int) -> Dict[str, torch.Tensor]:
+        """Scene-uniform scene, row uniform and crop offset of ``batch``
+        crops under ``key``: three keys split from it, as the JAX bank's
+        ``sample`` draws them (no offset draw for a crop as long as the
+        row)."""
+        key = prng.as_key(key)
+        k_scene, k_row, k_off = prng.split(key, 3).unbind(-2)
+        max_off = self.row_length - num_samples
         return {
-            "scene": _index_from_uniform(u[:, 0], self.scene_starts.shape[0]),
-            "row_u": u[:, 1].to(torch.float32),
-            "offset": _index_from_uniform(u[:, 2], max_off + 1),
+            "scene": _randint(k_scene, batch, self.scene_starts.shape[0]),
+            "row_u": prng.uniform(k_row, draw_shape(key, batch)).reshape(batch),
+            "offset": (
+                _randint(k_off, batch, max_off + 1) if max_off > 0
+                else torch.zeros((batch,), dtype=torch.int32)
+            ),
         }
 
     def crop(
@@ -108,20 +123,16 @@ class NoiseBank:
         b = self.crop(second["scene"], second["row_u"], second["offset"], num_samples)
         return rms_normalize((a + b) / 2.0)
 
-    def sample(
-        self, generator: torch.Generator, batch_size: int, num_samples: int
-    ) -> torch.Tensor:
+    def sample(self, key: torch.Tensor, batch_size: int, num_samples: int) -> torch.Tensor:
         """Draw (batch_size, num_samples) noise crops, scene-uniform."""
-        u = torch.rand((batch_size, 3), generator=generator, dtype=torch.float64)
-        return self.crop(**self.draw(u, num_samples), num_samples=num_samples)
+        return self.crop(**self.draw(key, batch_size, num_samples), num_samples=num_samples)
 
-    def sample_pair(
-        self, generator: torch.Generator, batch_size: int, num_samples: int
-    ) -> torch.Tensor:
+    def sample_pair(self, key: torch.Tensor, batch_size: int, num_samples: int) -> torch.Tensor:
         """Draw mixup crops: the average of two independent draws."""
-        u = torch.rand((batch_size, 6), generator=generator, dtype=torch.float64)
+        k1, k2 = prng.split(prng.as_key(key)).unbind(-2)
         return self.crop_pair(
-            self.draw(u[:, :3], num_samples), self.draw(u[:, 3:], num_samples), num_samples
+            self.draw(k1, batch_size, num_samples), self.draw(k2, batch_size, num_samples),
+            num_samples,
         )
 
 
@@ -144,17 +155,16 @@ class IRBank:
     def to(self, device: DeviceLike) -> "IRBank":
         return IRBank(self.irs.to(device), self.lengths.to(device), self.sample_rate)
 
-    def draw(self, u: torch.Tensor) -> torch.Tensor:
-        """(B,) uniforms -> IR indices."""
-        return _index_from_uniform(u, self.num_irs)
+    def draw(self, key: torch.Tensor, batch: int) -> torch.Tensor:
+        """(batch,) int32 IR indices under ``key``."""
+        return _randint(prng.as_key(key), batch, self.num_irs)
 
     def take(self, index: torch.Tensor) -> torch.Tensor:
         """(B,) indices -> (B, L) impulse responses."""
         return self.irs[index.to(self.device, torch.int64)]
 
-    def sample(self, generator: torch.Generator, batch_size: int) -> torch.Tensor:
-        u = torch.rand((batch_size,), generator=generator, dtype=torch.float64)
-        return self.take(self.draw(u))
+    def sample(self, key: torch.Tensor, batch_size: int) -> torch.Tensor:
+        return self.take(self.draw(key, batch_size))
 
 
 # ------------------------------------------------------------------ builders

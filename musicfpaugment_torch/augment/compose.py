@@ -1,9 +1,10 @@
 """Transform composition (port of musicfpaugment_tpu/augment/compose.py).
 
-``Compose.draw`` makes one transform's draws after the other from one
-generator, ``Compose.apply`` threads the batch through the transforms with
-those draws. SomeOf/OneOf pick *which transforms run* per call on the host,
-with python's ``random``, as the JAX package does.
+``Compose.draw`` splits one key per transform, as the JAX package's
+``Compose.apply`` does, and makes each transform's draws under its key;
+``Compose.apply`` threads the batch through the transforms with those
+draws. SomeOf/OneOf pick *which transforms run* per call on the host, with
+python's ``random``, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from musicfpaugment_torch.augment.banks import IRBank, NoiseBank
 from musicfpaugment_torch.augment.transforms import BaseWaveformTransform, Draws
+from musicfpaugment_torch.core import prng
 
 
 class BaseCompose:
@@ -31,12 +33,13 @@ class BaseCompose:
     def __len__(self) -> int:
         return len(self.transforms)
 
-    def _run(self, indexes, samples, sample_rate, generator, noise_bank, ir_bank):
-        """Draw and apply the transforms at ``indexes``, in that order."""
-        for i in indexes:
+    def _run(self, key, indexes, samples, sample_rate, noise_bank, ir_bank):
+        """Draw and apply the transforms at ``indexes``, in that order, one
+        key split from ``key`` each."""
+        keys = prng.split(prng.as_key(key), max(len(indexes), 1))
+        for k, i in zip(keys.unbind(-2), indexes):
             samples = self.transforms[i](
-                samples, sample_rate, generator=generator,
-                noise_bank=noise_bank, ir_bank=ir_bank,
+                k, samples, sample_rate, noise_bank=noise_bank, ir_bank=ir_bank
             )
         return samples
 
@@ -46,18 +49,20 @@ class Compose(BaseCompose):
 
     def draw(
         self,
-        generator: Optional[torch.Generator],
+        key: torch.Tensor,
         batch: int,
         num_samples: int,
         sample_rate: Optional[int] = None,
         noise_bank: Optional[NoiseBank] = None,
         ir_bank: Optional[IRBank] = None,
     ) -> List[Draws]:
-        """One draws dict per transform, in the transforms' order."""
+        """One draws dict per transform, in the transforms' order, each
+        under its key of ``split(key, len(self))`` (one key, or one per
+        example)."""
+        keys = prng.split(prng.as_key(key), len(self.transforms))
         return [
-            t.draw(generator, batch, num_samples, sample_rate,
-                   noise_bank=noise_bank, ir_bank=ir_bank)
-            for t in self.transforms
+            t.draw(k, batch, num_samples, sample_rate, noise_bank=noise_bank, ir_bank=ir_bank)
+            for t, k in zip(self.transforms, keys.unbind(-2))
         ]
 
     def apply(
@@ -74,11 +79,11 @@ class Compose(BaseCompose):
             )
         return samples
 
-    def __call__(self, samples, sample_rate=None, generator=None, noise_bank=None, ir_bank=None):
+    def __call__(self, key, samples, sample_rate=None, noise_bank=None, ir_bank=None):
         order = list(range(len(self.transforms)))
         if self.shuffle:
             _pyrandom.shuffle(order)  # host-level
-        return self._run(order, samples, sample_rate, generator, noise_bank, ir_bank)
+        return self._run(key, order, samples, sample_rate, noise_bank, ir_bank)
 
 
 class SomeOf(BaseCompose):
@@ -110,11 +115,11 @@ class SomeOf(BaseCompose):
             _pyrandom.sample(self.all_transforms_indexes, n)
         )
 
-    def __call__(self, samples, sample_rate=None, generator=None, noise_bank=None, ir_bank=None):
+    def __call__(self, key, samples, sample_rate=None, noise_bank=None, ir_bank=None):
         if _pyrandom.random() < self.p:
             self.randomize_parameters()
             samples = self._run(
-                self.transform_indexes, samples, sample_rate, generator, noise_bank, ir_bank
+                key, self.transform_indexes, samples, sample_rate, noise_bank, ir_bank
             )
         return samples
 

@@ -8,12 +8,13 @@ over device-resident noise/IR banks. One call augments a whole batch on the
 device; there is no per-call disk I/O.
 
 Randomness is apart from arithmetic. ``draw`` makes the chain's per-example
-parameters (one dict per stage) from an explicit CPU ``torch.Generator``,
-whatever the device, so a frozen-seed query set is the same on the CPU and
-on the card; ``apply`` is the deterministic chain on given draws;
-``batch_augment`` is both. The JAX package draws from threefry keys, which
-PyTorch cannot reproduce: the two packages agree on ``apply`` for the same
-draws, and statistically otherwise.
+parameters (one dict per stage) under a threefry key, following the JAX
+package's key tree (``core/prng.py``): ``batch_augment(x, key=k)`` draws
+what the JAX package's ``batch_augment(x, key=k)`` draws, and
+``batch_augment_indexed`` folds each example's index into the base key as
+the JAX package's does. The keys are words, so the draws are the same on the
+CPU and on the card; ``apply`` is the deterministic chain on given draws;
+``batch_augment`` is both.
 """
 
 from __future__ import annotations
@@ -36,7 +37,6 @@ from musicfpaugment_torch.augment.constants import (
     IMPULSE_RESPONSE_DIR,
 )
 from musicfpaugment_torch.augment.transforms import (
-    DRAW_SLOT_WIDTH,
     AddBackgroundNoise,
     ApplyImpulseResponse,
     Clipping,
@@ -49,6 +49,7 @@ from musicfpaugment_torch.augment.transforms import (
     fused_highpass_ir,
     fused_lowpass_highpass,
 )
+from musicfpaugment_torch.core import prng
 from musicfpaugment_torch.device import DeviceLike, resolve_device
 
 Waveforms = Union[torch.Tensor, np.ndarray]
@@ -172,9 +173,9 @@ class AugmentFP:
         # of the data, hence scale-equivariant). So the IR and noise stages'
         # peak normalizations and the entire Gain stage (a positive scalar
         # multiply) drop out of the final result exactly, up to float
-        # rounding. Gain's slot of draws is kept by an Identity placeholder so
-        # that the frozen-seed stream matches the exact chain stage for
-        # stage. Disabled automatically for batch-quantile clipping
+        # rounding. Gain's key of the chain's split is kept by an Identity
+        # placeholder so that the frozen-seed stream matches the exact chain
+        # stage for stage. Disabled automatically for batch-quantile clipping
         # (thresholds couple examples across different scales there).
         self.fast_chain = fast_chain and not batch_quantile_clipping
         if self.fast_chain:
@@ -192,9 +193,7 @@ class AugmentFP:
         self.fuse_lti = fuse_lti and self.fast_chain
 
         self.are_parameters_frozen = False
-        self._seed = _fresh_seed()
-        self._generator = torch.Generator()  # on the CPU, whatever the device
-        self._generator.manual_seed(self._seed)
+        self._key = prng.key(_fresh_seed())  # on the CPU, whatever the device
 
     @property
     def pipeline(self) -> Compose:
@@ -203,41 +202,24 @@ class AugmentFP:
 
     # ------------------------------------------------------------ draws
 
-    def draws_from_uniforms(self, u: torch.Tensor, num_samples: int) -> List[Draws]:
-        """(B, stages * DRAW_SLOT_WIDTH) uniforms -> one draws dict per
-        stage; each stage reads its own slot."""
-        return [
-            t.draws_from_uniforms(
-                u[:, i * DRAW_SLOT_WIDTH : (i + 1) * DRAW_SLOT_WIDTH],
-                num_samples, self.sample_rate,
-                noise_bank=self.noise_bank, ir_bank=self.ir_bank,
-            )
-            for i, t in enumerate(self.pipeline.transforms)
-        ]
+    def draw(self, batch: int, num_samples: int, key=None) -> List[Draws]:
+        """The chain's per-example parameters for ``batch`` examples under
+        ``key`` (default: the augmenter's own stream, which advances): one
+        key per stage split from it, as the JAX package's chain does. A
+        (batch, 2) batch of keys draws each example under its own."""
+        if key is None:
+            key = self._next_key()
+        return self.pipeline.draw(
+            key, batch, num_samples, self.sample_rate,
+            noise_bank=self.noise_bank, ir_bank=self.ir_bank,
+        )
 
-    def draw(
-        self, batch: int, num_samples: int, generator: Optional[torch.Generator] = None
-    ) -> List[Draws]:
-        """The chain's per-example parameters for ``batch`` examples, from
-        ``generator`` (default: the augmenter's own stream, which advances)."""
-        generator = generator if generator is not None else self._generator
-        width = len(self.pipeline) * DRAW_SLOT_WIDTH
-        u = torch.rand((batch, width), generator=generator, dtype=torch.float64)
-        return self.draws_from_uniforms(u, num_samples)
-
-    def draw_indexed(
-        self, indices: Sequence[int], num_samples: int, seed: int
-    ) -> List[Draws]:
-        """Example ``i``'s draws as a pure function of (seed, indices[i]):
-        its uniforms are the start of the Philox stream keyed by that pair
-        (a ``torch.Generator`` on the CPU keeps 32 bits of its seed, too few
-        for a pair)."""
-        width = len(self.pipeline) * DRAW_SLOT_WIDTH
-        rows = [
-            np.random.Generator(np.random.Philox(key=[int(seed), int(index)])).random(width)
-            for index in indices
-        ]
-        return self.draws_from_uniforms(torch.from_numpy(np.stack(rows)), num_samples)
+    def draw_indexed(self, indices: Sequence[int], num_samples: int, base_key) -> List[Draws]:
+        """Example ``i``'s draws under ``fold_in(base_key, indices[i])``, as
+        a batch of one: a pure function of the base key and the index."""
+        idx = torch.as_tensor(np.asarray(indices, np.int64))
+        keys = prng.fold_in(prng.as_key(base_key, "cpu"), idx)
+        return self.draw(len(idx), num_samples, keys)
 
     # ------------------------------------------------------------ chain
 
@@ -277,34 +259,33 @@ class AugmentFP:
 
     # ------------------------------------------------------------ API
 
-    def __call__(self, waveform: Waveforms, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def __call__(self, waveform: Waveforms, key=None) -> torch.Tensor:
         """Augment one waveform of shape (channels, time) or (time,)."""
         waveform = torch.as_tensor(waveform, dtype=torch.float32)
         squeeze_channel = waveform.ndim == 1
         if squeeze_channel:
             waveform = waveform[None, :]
-        out = self.batch_augment(waveform[None], generator=generator)[0]
+        out = self.batch_augment(waveform[None], key=key)[0]
         return out[0] if squeeze_channel else out
 
-    def batch_augment(
-        self, waveforms: Waveforms, generator: Optional[torch.Generator] = None
-    ) -> torch.Tensor:
-        """Augment a batch (batch, channels, time) on the device: draw, then
-        apply."""
-        draws = self.draw(waveforms.shape[0], waveforms.shape[-1], generator)
+    def batch_augment(self, waveforms: Waveforms, key=None) -> torch.Tensor:
+        """Augment a batch (batch, channels, time) on the device under
+        ``key`` (default: the next key of the augmenter's stream): draw,
+        then apply."""
+        draws = self.draw(waveforms.shape[0], waveforms.shape[-1], key)
         return self.apply(waveforms, draws)
 
     def batch_augment_indexed(
         self,
         waveforms: Waveforms,
         indices: Union[torch.Tensor, np.ndarray, Sequence[int]],
-        seed: Optional[int] = None,
+        base_key=None,
     ) -> torch.Tensor:
-        """Batch-size-invariant augmentation: example ``i``'s randomness is a
-        pure function of ``indices[i]`` and the seed (default: the frozen
-        seed), so a corpus processed in batches of 8 or 64 yields the same
-        outputs. Used by frozen-seed query generation
-        (testing/generate_queries.py).
+        """Batch-size-invariant augmentation: example ``i`` is augmented
+        under ``fold_in(base_key, indices[i])`` (default base key: the
+        frozen seed's key, else the next key of the stream), so a corpus
+        processed in batches of 8 or 64 yields the same outputs. Used by
+        frozen-seed query generation (testing/generate_queries.py).
 
         The draws never depend on the batch. The arithmetic is that of the
         libraries underneath: on the CPU with one thread the outputs are
@@ -312,11 +293,11 @@ class AugmentFP:
         1e-6 of the peak for others (the vectorised complex product and the
         one-group convolution round the odd rows of a tensor differently)."""
         indices = [int(i) for i in indices]
-        if seed is None:
-            # frozen: the seed itself, not advanced, so that the whole query
-            # set is a function of (seed, index) only
-            seed = self._seed if self.are_parameters_frozen else self._next_seed()
-        draws = self.draw_indexed(indices, waveforms.shape[-1], seed)
+        if base_key is None:
+            # frozen: the frozen seed's key itself, not advanced, so that the
+            # whole query set is a function of (seed, index) only
+            base_key = self._key if self.are_parameters_frozen else self._next_key()
+        draws = self.draw_indexed(indices, waveforms.shape[-1], base_key)
         if not self.batch_quantile_clipping:
             return self.apply(waveforms, draws)
         # batch quantiles couple the examples of one call: one call each
@@ -327,8 +308,7 @@ class AugmentFP:
 
     def to(self, device: DeviceLike) -> "AugmentFP":
         """This augmenter with its banks on ``device`` (itself if they are
-        there already); the copy shares the parameters and the draws'
-        stream."""
+        there already); the copy starts from the same key as this one."""
         device = resolve_device(device)
         if device == self.device:
             return self
@@ -338,21 +318,21 @@ class AugmentFP:
         moved.ir_bank = self.ir_bank.to(device)
         return moved
 
-    def _next_seed(self) -> int:
-        return int(torch.randint(0, 2**31 - 1, (1,), generator=self._generator))
+    def _next_key(self) -> torch.Tensor:
+        self._key, sub = prng.split(self._key).unbind(-2)
+        return sub
 
     # ------------------------------------------------------------ freezing
 
     def freeze_parameters(self, seed: int = 0) -> None:
-        """Reset the random stream for reproducible query generation."""
+        """Reset the random stream to ``PRNGKey(seed)`` for reproducible
+        query generation."""
         self.are_parameters_frozen = True
-        self._seed = int(seed)
-        self._generator.manual_seed(self._seed)
+        self._key = prng.key(seed)
 
     def unfreeze_parameters(self) -> None:
         self.are_parameters_frozen = False
-        self._seed = _fresh_seed()
-        self._generator.manual_seed(self._seed)
+        self._key = prng.key(_fresh_seed())
 
 
 def synthetic_banks(

@@ -5,18 +5,21 @@ Every transform computes its candidate output for the whole batch and
 lane-selects with the per-example gate, so unselected lanes keep their input
 bit for bit. Each transform is split in two:
 
-* ``draw(generator, batch, ...)`` takes an explicit CPU ``torch.Generator``
-  (``None``: torch's global one) and returns the per-example parameters as a dict of small ``(B,)`` tensors: the
-  gate ``mask`` and whatever the transform needs (cutoff, IR index, noise
-  scene/row/offset, SNR, gain, clipping quantile). Every draw consumes one
-  slot of ``DRAW_SLOT_WIDTH`` uniforms, whatever the transform, so replacing
-  a stage of a chain (``Identity`` for ``Gain``) leaves the draws of the
-  others as they were.
+* ``draw(key, batch, ...)`` returns the per-example parameters as a dict of
+  small ``(B,)`` tensors: the gate ``mask`` and whatever the transform needs
+  (cutoff, IR index, noise scene/row/offset, SNR, gain, clipping quantile).
+  It follows the JAX transform's key tree (``k_mask, k_tfm = split(key)``,
+  the gate a Bernoulli under ``k_mask``, the parameters under ``k_tfm``) with
+  the threefry functions of ``core/prng.py``, so a key gives the JAX
+  package's draws. ``key`` is one key for the whole batch, as the JAX
+  transform's ``__call__`` takes it, or a ``(B, 2)`` batch of keys, one per
+  example, each drawing as a batch of one (the JAX package's vmapped
+  per-example chain).
 * ``apply(samples, draws, ...)`` holds all the arithmetic and is
   deterministic. The draws may live on another device than the samples (they
   are a few scalars per example); ``apply`` moves them.
 
-``transform(samples, generator=...)`` style calls are ``__call__``: draw, then
+``__call__(key, samples, ...)`` is the JAX transform's call: draw, then
 apply. All transforms take and return ``samples`` of shape (batch, channels,
 time) or (batch, time), float32.
 """
@@ -28,7 +31,8 @@ from typing import Dict, Optional
 
 import torch
 
-from musicfpaugment_torch.augment.banks import IRBank, NoiseBank
+from musicfpaugment_torch.augment.banks import IRBank, NoiseBank, draw_shape
+from musicfpaugment_torch.core import prng
 from musicfpaugment_torch.core.convolve import fft_convolve
 from musicfpaugment_torch.core.filters import (
     DEFAULT_HALF_SIZE_MAX,
@@ -40,7 +44,7 @@ from musicfpaugment_torch.core.filters import (
     lowpass_filter,
     lowpass_kernels,
 )
-from musicfpaugment_torch.core.noise import batch_colored_noise
+from musicfpaugment_torch.core.noise import batch_colored_noise, white_noise
 from musicfpaugment_torch.core.utils import (
     calculate_rms,
     convert_decibels_to_amplitude_ratio,
@@ -49,14 +53,10 @@ from musicfpaugment_torch.core.utils import (
 
 Draws = Dict[str, torch.Tensor]
 
-# uniforms one transform's draw consumes (the most any needs: the gate, two
-# noise crops of three each, the SNR)
-DRAW_SLOT_WIDTH = 8
-
 
 def _db_to_ratio(decibels: torch.Tensor, device) -> torch.Tensor:
     """dB -> float32 amplitude ratio on ``device``, through float64: see
-    :func:`_mel_uniform_hz` (one example must not depend on its place in the
+    :func:`_mels_to_hz` (one example must not depend on its place in the
     batch)."""
     return convert_decibels_to_amplitude_ratio(decibels.to(device, torch.float64)).to(torch.float32)
 
@@ -77,20 +77,29 @@ def _apply_mask(mask: torch.Tensor, transformed: torch.Tensor, samples: torch.Te
     return torch.where(_per_example(mask, samples), transformed, samples)
 
 
-def _uniform(u: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
-    """Uniform [0, 1) -> float32 uniform [lo, hi); ``lo`` where hi <= lo."""
+def _uniform(key: torch.Tensor, batch: int, lo: float, hi: float) -> torch.Tensor:
+    """(batch,) float32 uniforms in [lo, hi) under ``key``; ``lo`` where
+    hi <= lo (no draw)."""
     if hi <= lo:
-        return torch.full((u.shape[0],), lo, dtype=torch.float32)
-    return (lo + u * (hi - lo)).to(torch.float32)
+        return torch.full((batch,), lo, dtype=torch.float32)
+    return prng.uniform(key, draw_shape(key, batch), lo, hi).reshape(batch)
 
 
-def _mel_uniform_hz(u: torch.Tensor, lo_mel: float, hi_mel: float) -> torch.Tensor:
-    """Uniform [0, 1) -> frequency in Hz, uniform in mel between the bounds.
-    Computed in float64 and rounded once: a vectorised ``10 ** x`` may round
-    an element by its place in the batch, which float32 would let through
-    into the draw."""
-    mels = lo_mel + u.to(torch.float64) * max(hi_mel - lo_mel, 0.0)
-    return convert_mels_to_frequencies(mels)
+def _gate(key: torch.Tensor, p: float, batch: int) -> torch.Tensor:
+    """The per-example Bernoulli(p) gate; all on for p >= 1, all off for
+    p <= 0 (no draw)."""
+    if p >= 1.0:
+        return torch.ones((batch,), dtype=torch.bool)
+    if p <= 0.0:
+        return torch.zeros((batch,), dtype=torch.bool)
+    return prng.bernoulli(key, p, draw_shape(key, batch)).reshape(batch)
+
+
+def _mels_to_hz(mels: torch.Tensor) -> torch.Tensor:
+    """float32 mels -> Hz in float64. Rounded once by the caller: a
+    vectorised ``10 ** x`` may round an element by its place in the batch,
+    which float32 would let through into the draw."""
+    return convert_mels_to_frequencies(mels.to(torch.float64))
 
 
 class BaseWaveformTransform:
@@ -109,35 +118,27 @@ class BaseWaveformTransform:
 
     def draw(
         self,
-        generator: Optional[torch.Generator],
+        key: torch.Tensor,
         batch: int,
         num_samples: int,
         sample_rate: Optional[int] = None,
         noise_bank: Optional[NoiseBank] = None,
         ir_bank: Optional[IRBank] = None,
     ) -> Draws:
-        """The parameters of ``batch`` examples from one slot of uniforms."""
-        u = torch.rand((batch, DRAW_SLOT_WIDTH), generator=generator, dtype=torch.float64)
-        return self.draws_from_uniforms(
-            u, num_samples, sample_rate, noise_bank=noise_bank, ir_bank=ir_bank
-        )
-
-    def draws_from_uniforms(
-        self, u: torch.Tensor, num_samples: int, sample_rate: Optional[int] = None,
-        *, noise_bank=None, ir_bank=None,
-    ) -> Draws:
-        """(B, DRAW_SLOT_WIDTH) uniforms -> draws. Column 0 is the gate: on
-        with probability ``p``, so always for p = 1 and never for p = 0."""
-        draws = {"mask": u[:, 0] < self.p}
+        """The parameters of ``batch`` examples under ``key`` (one key, or
+        one per example): the gate under the first half of its split, the
+        transform's own draws under the second."""
+        k_mask, k_tfm = prng.split(prng.as_key(key)).unbind(-2)
+        draws = {"mask": _gate(k_mask, self.p, batch)}
         draws.update(
             self._parameters(
-                u[:, 1:], num_samples, sample_rate or self.sample_rate,
+                k_tfm, batch, num_samples, sample_rate or self.sample_rate,
                 noise_bank=noise_bank, ir_bank=ir_bank,
             )
         )
         return draws
 
-    def _parameters(self, u, num_samples, sample_rate, *, noise_bank=None, ir_bank=None) -> Draws:
+    def _parameters(self, key, batch, num_samples, sample_rate, *, noise_bank=None, ir_bank=None) -> Draws:
         return {}
 
     # ------------------------------------------------------------- arithmetic
@@ -167,9 +168,9 @@ class BaseWaveformTransform:
 
     def __call__(
         self,
+        key: torch.Tensor,
         samples: torch.Tensor,
         sample_rate: Optional[int] = None,
-        generator: Optional[torch.Generator] = None,
         noise_bank: Optional[NoiseBank] = None,
         ir_bank: Optional[IRBank] = None,
     ) -> torch.Tensor:
@@ -180,7 +181,7 @@ class BaseWaveformTransform:
         if self.p <= 0.0:
             return samples
         draws = self.draw(
-            generator, samples.shape[0], samples.shape[-1], sample_rate,
+            key, samples.shape[0], samples.shape[-1], sample_rate,
             noise_bank=noise_bank, ir_bank=ir_bank,
         )
         return self.apply(samples, draws, sample_rate, noise_bank=noise_bank, ir_bank=ir_bank)
@@ -232,9 +233,10 @@ class LowPassFilter(BaseWaveformTransform):
             float(math.floor(_hz_to_mel(self.max_cutoff_freq))),
         )
 
-    def _parameters(self, u, num_samples, sample_rate, *, noise_bank=None, ir_bank=None):
+    def _parameters(self, key, batch, num_samples, sample_rate, *, noise_bank=None, ir_bank=None):
         lo, hi = self.cutoff_bounds_mel()
-        return {"cutoff": (_mel_uniform_hz(u[:, 0], lo, hi) / sample_rate).to(torch.float32)}
+        mels = _uniform(key, batch, lo, hi)
+        return {"cutoff": (_mels_to_hz(mels) / sample_rate).to(torch.float32)}
 
     def transform(self, samples, draws, sample_rate, *, noise_bank=None, ir_bank=None):
         fn = lowpass_filter if self._mode == "low" else highpass_filter
@@ -313,11 +315,14 @@ class BandPassFilter(BaseWaveformTransform):
         self.max_bandwidth_fraction = max_bandwidth_fraction
         self.half_size_max = half_size_max
 
-    def _parameters(self, u, num_samples, sample_rate, *, noise_bank=None, ir_bank=None):
+    def _parameters(self, key, batch, num_samples, sample_rate, *, noise_bank=None, ir_bank=None):
+        k_center, k_bw = prng.split(key).unbind(-2)
         lo_mel = _hz_to_mel(self.min_center_frequency)
         hi_mel = _hz_to_mel(self.max_center_frequency)
-        center = _mel_uniform_hz(u[:, 0], lo_mel, hi_mel)
-        bw = _uniform(u[:, 1], self.min_bandwidth_fraction, self.max_bandwidth_fraction)
+        center = _mels_to_hz(_uniform(k_center, batch, lo_mel, hi_mel))
+        bw = _uniform(
+            k_bw, batch, self.min_bandwidth_fraction, self.max_bandwidth_fraction
+        ).to(torch.float64)
         return {
             "low": (center * (1.0 - 0.5 * bw) / sample_rate).to(torch.float32),
             "high": (center * (1.0 + 0.5 * bw) / sample_rate).to(torch.float32),
@@ -372,8 +377,8 @@ class ApplyImpulseResponse(BaseWaveformTransform):
             raise ValueError("ApplyImpulseResponse requires an IRBank")
         return bank
 
-    def _parameters(self, u, num_samples, sample_rate, *, noise_bank=None, ir_bank=None):
-        return {"index": self._bank(ir_bank).draw(u[:, 0])}
+    def _parameters(self, key, batch, num_samples, sample_rate, *, noise_bank=None, ir_bank=None):
+        return {"index": self._bank(ir_bank).draw(key, batch)}
 
     def transform(self, samples, draws, sample_rate, *, noise_bank=None, ir_bank=None):
         num_samples = samples.shape[-1]
@@ -444,13 +449,17 @@ class AddBackgroundNoise(BaseWaveformTransform):
             raise ValueError("AddBackgroundNoise requires a NoiseBank")
         return bank
 
-    def _parameters(self, u, num_samples, sample_rate, *, noise_bank=None, ir_bank=None):
+    def _parameters(self, key, batch, num_samples, sample_rate, *, noise_bank=None, ir_bank=None):
         bank = self._bank(noise_bank)
-        draws = bank.draw(u[:, 0:3], num_samples)
+        k_noise, k_snr = prng.split(key).unbind(-2)
         if self.mixup:
-            second = bank.draw(u[:, 3:6], num_samples)
+            k1, k2 = prng.split(k_noise).unbind(-2)
+            draws = bank.draw(k1, batch, num_samples)
+            second = bank.draw(k2, batch, num_samples)
             draws.update({k + "2": v for k, v in second.items()})
-        draws["snr_db"] = _uniform(u[:, 6], self.min_snr_in_db, self.max_snr_in_db)
+        else:
+            draws = bank.draw(k_noise, batch, num_samples)
+        draws["snr_db"] = _uniform(k_snr, batch, self.min_snr_in_db, self.max_snr_in_db)
         return draws
 
     def transform(self, samples, draws, sample_rate, *, noise_bank=None, ir_bank=None):
@@ -489,16 +498,13 @@ class AddColoredNoise(BaseWaveformTransform):
         self.min_f_decay = float(min_f_decay)
         self.max_f_decay = float(max_f_decay)
 
-    def draw(self, generator, batch, num_samples, sample_rate=None, noise_bank=None, ir_bank=None):
-        draws = super().draw(generator, batch, num_samples, sample_rate)
+    def _parameters(self, key, batch, num_samples, sample_rate, *, noise_bank=None, ir_bank=None):
+        k_noise, k_snr, k_decay = prng.split(key, 3).unbind(-2)
         sr = self.sample_rate or sample_rate or 44100
-        draws["white"] = torch.randn((batch, sr), generator=generator, dtype=torch.float32)
-        return draws
-
-    def _parameters(self, u, num_samples, sample_rate, *, noise_bank=None, ir_bank=None):
         return {
-            "snr_db": _uniform(u[:, 0], self.min_snr_in_db, self.max_snr_in_db),
-            "f_decay": _uniform(u[:, 1], self.min_f_decay, self.max_f_decay),
+            "snr_db": _uniform(k_snr, batch, self.min_snr_in_db, self.max_snr_in_db),
+            "f_decay": _uniform(k_decay, batch, self.min_f_decay, self.max_f_decay),
+            "white": white_noise(k_noise, batch, sr),
         }
 
     def transform(self, samples, draws, sample_rate, *, noise_bank=None, ir_bank=None):
@@ -531,8 +537,8 @@ class Gain(BaseWaveformTransform):
         self.min_gain_in_db = float(min_gain_in_db)
         self.max_gain_in_db = float(max_gain_in_db)
 
-    def _parameters(self, u, num_samples, sample_rate, *, noise_bank=None, ir_bank=None):
-        return {"gain_db": _uniform(u[:, 0], self.min_gain_in_db, self.max_gain_in_db)}
+    def _parameters(self, key, batch, num_samples, sample_rate, *, noise_bank=None, ir_bank=None):
+        return {"gain_db": _uniform(key, batch, self.min_gain_in_db, self.max_gain_in_db)}
 
     def transform(self, samples, draws, sample_rate, *, noise_bank=None, ir_bank=None):
         return samples * _per_example(_db_to_ratio(draws["gain_db"], samples.device), samples)
@@ -599,10 +605,10 @@ class Clipping(BaseWaveformTransform):
             v_hi = torch.gather(sorted_vals, -1, (lo + 1)[:, None])[:, 0]
         return v_lo * (1.0 - frac) + v_hi * frac
 
-    def _parameters(self, u, num_samples, sample_rate, *, noise_bank=None, ir_bank=None):
+    def _parameters(self, key, batch, num_samples, sample_rate, *, noise_bank=None, ir_bank=None):
         return {
             "quantile": _uniform(
-                u[:, 0], self.min_percentile_threshold, self.max_percentile_threshold
+                key, batch, self.min_percentile_threshold, self.max_percentile_threshold
             )
         }
 
@@ -638,8 +644,8 @@ class Identity(BaseWaveformTransform):
 
     AugmentFP's fast chain replaces Gain with this: a per-example scalar
     multiply is erased by the final PeakNormalization, but the stage still
-    consumes its slot of uniforms so that the frozen-seed stream matches the
-    exact chain stage for stage.
+    takes its key of the chain's split so that the frozen-seed stream
+    matches the exact chain stage for stage. Its draws are the gate alone.
     """
 
     requires_sample_rate = False
@@ -647,7 +653,7 @@ class Identity(BaseWaveformTransform):
     def apply(self, samples, draws, sample_rate=None, noise_bank=None, ir_bank=None):
         return samples
 
-    def __call__(self, samples, sample_rate=None, generator=None, noise_bank=None, ir_bank=None):
+    def __call__(self, key, samples, sample_rate=None, noise_bank=None, ir_bank=None):
         return samples
 
 
@@ -790,7 +796,6 @@ def fused_lowpass_highpass(
 
 
 __all__ = [
-    "DRAW_SLOT_WIDTH",
     "BaseWaveformTransform",
     "LowPassFilter",
     "HighPassFilter",

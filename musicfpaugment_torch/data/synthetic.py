@@ -4,11 +4,12 @@ musicfpaugment_tpu/data/synthetic.py).
 * :func:`synthetic_clean_batches` — host numpy iterator, identical to the
   JAX package's (same seed, same samples);
 * :func:`synth_tracks_device` — the same kind of content built on the
-  device, track ``i`` a pure function of ``(seed, i)``: each track draws its
-  notes from its own ``torch.Generator``, so a corpus of any size is
-  addressable without storage and a track does not depend on the batch it
-  is built in. Its bits differ from the JAX version's (different
-  generators);
+  device, track ``i`` a pure function of ``(seed, i)``: its notes are drawn
+  under the threefry key ``fold_in(PRNGKey(seed), i)`` as the JAX
+  package's are, so a corpus of any size is addressable without storage, a
+  track does not depend on the batch it is built in, and track ``i`` is the
+  JAX package's track ``i`` (up to the order of float sums) on every
+  device;
 * :func:`write_fma_tracks_csv` — a ``tracks.csv`` in FMA's metadata
   layout, for corpora written by tests and smoke runs.
 """
@@ -21,6 +22,7 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from musicfpaugment_torch.core import prng
 from musicfpaugment_torch.device import DeviceLike, resolve_device
 
 
@@ -54,13 +56,6 @@ def synthetic_clean_batches(
         yield batch
 
 
-def _track_generator(seed: int, index: int, device: torch.device) -> torch.Generator:
-    """The generator of track ``index``: seeded from (seed, index) through
-    numpy's SeedSequence, so neighbouring indices get unrelated streams."""
-    state = np.random.SeedSequence([seed, index]).generate_state(1, np.uint32)[0]
-    return torch.Generator(device=device).manual_seed(int(state))
-
-
 def synth_tracks_device(
     seed: int,
     indices: Sequence[int],
@@ -72,6 +67,8 @@ def synth_tracks_device(
     """(B,) track indices -> (B, num_samples) float32 tracks on ``device``:
     exponentially decaying sine notes at random onsets, peak-normalized.
 
+    Track ``i`` draws its notes' frequency, onset, length and amplitude from
+    ``split(fold_in(PRNGKey(seed), i), 4)``, with the JAX package's bounds.
     Each note lasts under L = pow2 >= sample_rate/4 + 2 samples, so it is
     evaluated on a 2L-sample window anchored at the L-frame holding its
     onset and added into that frame and the next. The notes anchored in one
@@ -80,17 +77,16 @@ def synth_tracks_device(
     the batch it is built in."""
     device = resolve_device(device)
     n_notes = max(4, num_samples * notes_per_second // sample_rate)
-    B = len(indices)
-    params = []
-    for idx in indices:
-        g = _track_generator(seed, int(idx), device)
-        u = torch.rand((4, n_notes), generator=g, device=device)
-        params.append(u)
-    u = torch.stack(params, dim=1)  # (4, B, n_notes) uniform [0, 1)
-    f = 80.0 + u[0] * (3500.0 - 80.0)
-    start = u[1] * float(max(1, num_samples - sample_rate // 8))
-    dur = sample_rate // 16 + u[2] * float(sample_rate // 4 - sample_rate // 16)
-    amp = 0.3 + u[3] * 0.7
+    tids = torch.as_tensor(np.asarray(indices, np.int64))
+    B = tids.shape[0]
+    # the (B, 4) keys are a few words: derived on the host, one hash of
+    # all four parameters' draws on the device
+    keys = prng.split(prng.fold_in(prng.key(seed), tids), 4).to(device)
+    bounds = torch.tensor([
+        [80.0, 0.0, float(sample_rate // 16), 0.3],
+        [3500.0, float(max(1, num_samples - sample_rate // 8)), float(sample_rate // 4), 1.0],
+    ], device=device)[:, None, :, None]
+    f, start, dur, amp = prng.uniform(keys, (n_notes,), bounds[0], bounds[1]).unbind(1)  # (B, n_notes) each
 
     L = 1 << int(np.ceil(np.log2(sample_rate // 4 + 2)))
     n_frames = -(-num_samples // L) + 1  # +1: windows spill one frame right
@@ -111,6 +107,13 @@ def synth_tracks_device(
     note_at[torch.arange(B, device=device)[:, None], anchor, slot] = pos
 
     j = torch.arange(2 * L, device=device, dtype=torch.float32)
+    # The JAX package's sin(2 pi f t / sr) exp(-8 t / sr), as XLA rounds it:
+    # the division becomes a product with the float32 reciprocal and the
+    # constants fold into one factor, rel * (f * (2 pi * (1 / sr))). A
+    # note's phase reaches ~5,500 rad, so a rounding of its own would show.
+    inv_sr = torch.tensor(1.0 / sample_rate, dtype=torch.float32, device=device)
+    omega = torch.tensor(2.0 * np.pi, dtype=torch.float32, device=device) * inv_sr
+    decay = inv_sr * -8.0
     frame_start = (torch.arange(n_frames, device=device) * L).to(torch.float32)
     acc = torch.zeros((B, n_frames + 1, L), device=device)
     for m in range(n_slots):
@@ -120,11 +123,10 @@ def synth_tracks_device(
         nf, ns, nd, na = (torch.gather(p, 1, safe) for p in (f, start, dur, amp))
         rel = frame_start[None, :, None] - ns[..., None] + j  # (B, frames, 2L)
         gate = live[..., None] & (rel >= 0.0) & (rel < nd[..., None])
-        phase = rel / sample_rate
         val = torch.where(
             gate,
-            na[..., None] * torch.sin(2.0 * np.pi * nf[..., None] * phase)
-            * torch.exp(-8.0 * phase),
+            na[..., None] * torch.sin(rel * (nf * omega)[..., None])
+            * torch.exp(rel * decay),
             0.0,
         )
         acc[:, :n_frames] += val[..., :L]

@@ -42,15 +42,13 @@ class ShardedAugmenter:
     def num_devices(self) -> int:
         return len(self.mesh)
 
-    def batch_augment(
-        self, waveforms, generator: Optional[torch.Generator] = None
-    ) -> List[torch.Tensor]:
+    def batch_augment(self, waveforms, key: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
         """(B, channels, time) or (B, time) -> the augmented slice of each
-        mesh position, from one set of draws for the whole batch
-        (``generator``: default the augmenter's own stream)."""
+        mesh position, from one set of draws for the whole batch under
+        ``key`` (default: the next key of the augmenter's stream)."""
         waveforms = torch.as_tensor(waveforms, dtype=torch.float32)
         bounds = shard_bounds(waveforms.shape[0], self.mesh)
-        draws = self.augmenter.draw(waveforms.shape[0], waveforms.shape[-1], generator)
+        draws = self.augmenter.draw(waveforms.shape[0], waveforms.shape[-1], key)
         return [
             self._on[d].apply(waveforms[lo:hi].to(d), shard_draws(draws, lo, hi))
             for (lo, hi), d in zip(bounds, self.mesh)

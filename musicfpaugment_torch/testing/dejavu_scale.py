@@ -12,8 +12,8 @@ Stages (resumable and bounded by ``--minutes``; state in ``--workdir``):
             hashes, per-song dedup and valid-first compaction on the card,
             read back behind the next batch's launch; the raw index is saved
             at the end of each invocation.
-  match   - ``finalize`` (a host lexsort over every row into the CSR
-            arrays, each hot key cut to ``--hash-cap`` rows), the upload,
+  match   - ``finalize`` (a host sort of every row into the CSR arrays,
+            each hot key cut to ``--hash-cap`` rows), the upload,
             then the conditions through the batched matcher: accuracy and
             queries/s; with ``--denoise`` also the UNet arm (the checkpoint
             ``scale_proof train`` writes) and the mix rule on
@@ -166,12 +166,19 @@ def stage_ingest(args, tracks: Optional[Tracks] = None) -> None:
     save_state(args.workdir, state)
 
 
-def load_matcher(args, state: dict):
+def load_index(workdir: str) -> DejavuDeviceIndex:
+    """The saved raw index, to finalize once and hand to several stages
+    (their ``index=``) in one process."""
+    return DejavuDeviceIndex.load(_index_path(workdir))
+
+
+def load_matcher(args, state: dict, index: Optional[DejavuDeviceIndex] = None):
     """The index loaded and finalized (``finalize_s`` counts both), and put
-    on the card; records the CSR figures in ``state``."""
+    on the card; records the CSR figures in ``state``. A given ``index`` is
+    used as it is: its CSR is finalized once, and the caller times that."""
     dev = resolve_device(args.device)
     t0 = time.perf_counter()
-    idx = DejavuDeviceIndex.load(_index_path(args.workdir))
+    idx = index if index is not None else load_index(args.workdir)
     starts, rows, _nbuckets, depth = idx.finalize()
     finalize_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -187,9 +194,10 @@ def load_matcher(args, state: dict):
         bucket_depth=int(depth),
         index_mb=round(index_mb, 1),
         rows_dropped=int(idx.rows_dropped),
-        finalize_s=round(finalize_s, 1),
         index_upload_s=round(upload_s, 1),
     )
+    if index is None:
+        state["finalize_s"] = round(finalize_s, 1)
     return idx, dm
 
 
@@ -215,11 +223,11 @@ def score_batch(res, res_den, tids, den_active: bool):
     return correct, correct_den, correct_mix
 
 
-def stage_match(args, tracks: Optional[Tracks] = None) -> None:
+def stage_match(args, tracks: Optional[Tracks] = None, index: Optional[DejavuDeviceIndex] = None) -> None:
     dev = resolve_device(args.device)
     state = load_state(args.workdir)
     require_ingest(state)
-    idx, dm = load_matcher(args, state)
+    idx, dm = load_matcher(args, state, index)
     tracks = tracks or corpus_tracks(args.corpus_seed, dev)
 
     # every query also through the UNet-denoised matcher, which reuses the
@@ -314,14 +322,14 @@ def python_align_oracle(starts, rows, timebits: int, names, query_hashes):
     }
 
 
-def stage_oracle(args, tracks: Optional[Tracks] = None) -> None:
+def stage_oracle(args, tracks: Optional[Tracks] = None, index: Optional[DejavuDeviceIndex] = None) -> None:
     """``--oracle-n`` ``bn_p10`` queries (plan seed 43): the device results
     against :func:`python_align_oracle` on the same masks' hashes, every
     field."""
     dev = resolve_device(args.device)
     state = load_state(args.workdir)
     require_ingest(state)
-    idx, dm = load_matcher(args, state)
+    idx, dm = load_matcher(args, state, index)
     starts, rows, _nb, _d = idx.finalize()
     tracks = tracks or corpus_tracks(args.corpus_seed, dev)
     n = args.oracle_n

@@ -6,7 +6,8 @@ FMA-large) queried by 8 s crops under the 11 conditions. The corpus here is
 storage-free: track ``i`` is a pure function of ``(--corpus-seed, i)``
 (``data/synthetic.synth_tracks_device``), so the corpus is indexed and its
 queries regenerated on the card without a waveform ever crossing from the
-host. Its bits differ from the JAX package's corpus (other generators).
+host. Its draws are the JAX package's (threefry keys), so track ``i`` is
+the JAX package's track ``i`` on every device, and so are the queries.
 
 Stages (each resumable and bounded by ``--minutes``; state in
 ``--workdir``):

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from musicfpaugment_torch.augment.pipeline import AugmentFP, synthetic_banks
+from musicfpaugment_torch.core import prng
 from musicfpaugment_torch.device import cudnn_tf32, resolve_device
 from musicfpaugment_torch.models import Demucs, UNet
 from musicfpaugment_torch.train import parameters as P
@@ -87,7 +88,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[str]:
     )
     augmenter = AugmentFP(noise_bank, sr, impulse_response_dir=ir_bank, device=device)
     clean_t = torch.from_numpy(np.ascontiguousarray(clean, np.float32)).to(device)
-    augmented = augmenter(clean_t, generator=torch.Generator().manual_seed(args.seed))
+    augmented = augmenter(clean_t, key=prng.key(args.seed))
 
     torch.manual_seed(args.seed)  # the random model, where there is no checkpoint
     model = UNet(1, 1, rate=0.05) if args.model == "unet" else Demucs()

@@ -3,9 +3,10 @@ TensorBoard monitoring and data-parallel training (port of
 musicfpaugment_tpu/train/trainer.py).
 
 One training step: the clean batch goes to the device, ``AugmentFP`` degrades
-it there (its draws are made on the host from the trainer's own seeded
-generator), then spectrograms, the forward, the loss, the backward pass and
-the Adam update. Two input types: ``"spec"`` (the UNet: L1 on per-example
+it there (its draws are made on the host under the step's threefry key, split
+from ``PRNGKey(seed)`` as the JAX trainer splits its keys, so a step's
+augmented batch is the JAX trainer's), then spectrograms, the forward, the
+loss, the backward pass and the Adam update. Two input types: ``"spec"`` (the UNet: L1 on per-example
 max-normalised magnitude spectrograms, the running statistics updated) and
 ``"audio"`` (Demucs: L1 + multi-resolution STFT). Validation adds
 the micro-PSNR and steps the plateau scheduler on the validation loss.
@@ -22,7 +23,7 @@ one.
 Data parallelism: when a ``torch.distributed`` process group is up
 (``parallel.init_multihost``), the model trains under
 ``DistributedDataParallel``. Every rank reads the same global batch and the
-same draws (from the same seeded generator) and takes its slice, and the
+same draws (under the same key) and takes its slice, and the
 UNet's BatchNorm normalises by the global batch's statistics, so N ranks
 compute what one process computes on the global batch (dropout aside: its
 masks are each rank's own). The loss terms and the PSNR are reduced over
@@ -42,6 +43,7 @@ import torch
 from torch import nn
 
 from musicfpaugment_torch.augment.pipeline import AugmentFP
+from musicfpaugment_torch.core import prng
 from musicfpaugment_torch.core.stft import magnitude_spectrogram
 from musicfpaugment_torch.device import DeviceLike, cudnn_tf32, resolve_device
 from musicfpaugment_torch.parallel.augment_sharded import shard_draws
@@ -207,13 +209,15 @@ class Trainer:
         self.min_valid_loss = float("inf")
         self.history: list = []
         # The first val_steps batches are kept and replayed with fixed draws
-        # (batch i's from the Philox streams keyed by (seed + 1, example
-        # index)), so the validation loss is a fixed target for the plateau
+        # (batch i's under fold_in(PRNGKey(seed + 1), i), as in the JAX
+        # trainer), so the validation loss is a fixed target for the plateau
         # scheduler and early stopping.
         self.cache_validation_set = cache_validation_set
         self._val_cache: Optional[list] = None
-        # the draws of training steps: on the host, whatever the device
-        self._generator = torch.Generator().manual_seed(seed)
+        # the stream of step keys (drawn on the host, whatever the device);
+        # each step's key splits into the augmentation's key and dropout's,
+        # which goes unused: dropout draws from torch's own generator
+        self._key = prng.key(seed)
         self.step = 0
         self.optimizer = torch.optim.Adam(
             self.model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8
@@ -273,11 +277,21 @@ class Trainer:
         loss = l1 + sc + mag
         return loss, {"loss": loss, "l1_loss": l1, "sc_loss": sc, "mag_loss": mag}, pred, clean
 
+    def _next_key(self) -> torch.Tensor:
+        self._key, k = prng.split(self._key).unbind(-2)
+        return k
+
+    def _augment_draws(self, key, batch: int, num_samples: int):
+        """The draws of a whole global batch under a step's key: its first
+        half, as the JAX trainer's ``k_aug, k_drop = split(key)``."""
+        k_aug, _ = prng.split(key).unbind(-2)
+        return self.augmenter.draw(batch, num_samples, k_aug)
+
     def _make_batch(self, clean, aug, draws=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """(clean, augmented) of this rank's slice of a global batch, on the
         device. The augmented half is made there from ``draws`` of the whole
-        batch (default: fresh ones from the trainer's generator) when there
-        is an augmenter, else taken from the loader."""
+        batch (default: under the next step key) when there is an
+        augmenter, else taken from the loader."""
         clean = torch.as_tensor(clean)
         lo, hi = self._bounds(clean.shape[0])
         local = clean[lo:hi].to(self.device)
@@ -286,7 +300,7 @@ class Trainer:
                 raise ValueError("a clean-only batch needs an augmenter")
             return local, torch.as_tensor(aug)[lo:hi].to(self.device)
         if draws is None:
-            draws = self.augmenter.draw(clean.shape[0], clean.shape[-1], self._generator)
+            draws = self._augment_draws(self._next_key(), clean.shape[0], clean.shape[-1])
         return local, self.augmenter.apply(local, shard_draws(draws, lo, hi))
 
     def _get_batch(self, iterator) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -366,10 +380,8 @@ class Trainer:
                 if self.augmenter is None:
                     self._val_cache.append(self._make_batch(clean, aug) + (None,))
                     continue
-                # example j of batch i draws from the stream keyed (seed + 1, i * b + j)
-                draws = self.augmenter.draw_indexed(
-                    range(i * b + lo, i * b + hi), clean.shape[-1], self.seed + 1
-                )
+                key = prng.fold_in(prng.key(self.seed + 1), i)
+                draws = shard_draws(self._augment_draws(key, b, clean.shape[-1]), lo, hi)
                 self._val_cache.append((clean[lo:hi].to(self.device), None, draws))
         return (
             (clean, aug if draws is None else self.augmenter.apply(clean, draws))
@@ -437,7 +449,7 @@ class Trainer:
         return os.path.join(os.path.abspath(self.checkpoint), name)
 
     def _save_checkpoint(self, name: str, epoch: int) -> None:
-        """``state.pt`` (model, optimizer, step, the draws' generator) and
+        """``state.pt`` (model, optimizer, step, the stream's key) and
         ``trainer_meta.json`` with the JAX package's keys."""
         path = self._ckpt_dir(name)
         os.makedirs(path, exist_ok=True)
@@ -446,7 +458,7 @@ class Trainer:
                 "model": self.model.state_dict(),
                 "optimizer": self.optimizer.state_dict(),
                 "step": self.step,
-                "generator": self._generator.get_state(),
+                "key": self._key,
             },
             os.path.join(path, "state.pt"),
         )
@@ -469,7 +481,7 @@ class Trainer:
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
-        self._generator.set_state(state["generator"].cpu())
+        self._key = state["key"].cpu()
         with open(os.path.join(path, "trainer_meta.json")) as f:
             meta = json.load(f)
         self.epoch_start = meta["epoch"]

@@ -14,6 +14,7 @@ import scipy.io.wavfile
 import torch
 
 from musicfpaugment_torch.apps import streamlit_app as tapp
+from musicfpaugment_torch.core import prng
 from musicfpaugment_torch.data import native
 from musicfpaugment_tpu.apps import streamlit_app as japp
 
@@ -96,13 +97,13 @@ def test_uploads_decode_like_jax(tmp_path):
 def test_process_audio_on_the_cpu():
     model = tapp.define_model(StandIn(), device="cpu")
     x = np.random.default_rng(2).uniform(-0.5, 0.5, (4, 1, 16000)).astype(np.float32)
-    outs = tapp.process_audio(x, [16000] * 4, model, generator=torch.Generator().manual_seed(0))
+    outs = tapp.process_audio(x, [16000] * 4, model, key=prng.key(0))
     assert len(outs) == 4
     for out in outs:
         sr, y = scipy.io.wavfile.read(io.BytesIO(out))
         y = y.astype(np.float32) / 32767
         assert sr == 16000 and y.shape == (16000,) and np.isfinite(y).all() and np.abs(y).max() <= 1.0
-    again = tapp.process_audio(x, [16000] * 4, model, generator=torch.Generator().manual_seed(0))
+    again = tapp.process_audio(x, [16000] * 4, model, key=prng.key(0))
     assert again == outs
 
 

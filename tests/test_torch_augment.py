@@ -8,8 +8,9 @@ difference allowed is CHAIN_ATOL: float32 through two FFT and convolution
 libraries, ``10 ** x``/``sin``/``cos`` rounded differently, and a clipping
 threshold that moves with them.
 
-The port's own random stream cannot match JAX's, so with the port's
-generator the chain's properties are held instead.
+The port's own keys are held against JAX's draws and outputs in
+tests/test_torch_draws.py; here the chain's properties under the port's
+keys.
 """
 
 import jax
@@ -21,6 +22,7 @@ import torch
 from musicfpaugment_torch import augment as taugment
 from musicfpaugment_torch import convert
 from musicfpaugment_torch.core import noise as tnoise
+from musicfpaugment_torch.core import prng
 from musicfpaugment_torch.testing import parameters as tparams
 from musicfpaugment_tpu import augment as jaugment
 from musicfpaugment_tpu.testing import parameters as jparams
@@ -168,7 +170,7 @@ def test_condition_parameters_equal_jax():
     assert set(taugment.__all__) == set(jaugment.__all__)
 
 
-# ------------------------------------------------------------ own generator
+# ------------------------------------------------------------ own keys
 
 
 def test_freeze_determinism_and_streams(tbanks):
@@ -179,9 +181,8 @@ def test_freeze_determinism_and_streams(tbanks):
     fp.freeze_parameters(42)
     b = fp.batch_augment(x)
     assert torch.equal(a, b) and not torch.equal(a, a2)  # the stream advances
-    g = torch.Generator().manual_seed(7)
-    c = fp.batch_augment(x, generator=g)
-    assert torch.equal(c, fp.batch_augment(x, generator=torch.Generator().manual_seed(7)))
+    c = fp.batch_augment(x, key=prng.key(7))
+    assert torch.equal(c, fp.batch_augment(x, key=prng.key(7)))
     fp.unfreeze_parameters()
     assert not fp.are_parameters_frozen
     one = fp(x[0, 0])
@@ -207,7 +208,7 @@ def test_batch_augment_indexed_ignores_batch_size(mode, tbanks):
         assert torch.equal(again, whole[10:12])
         other = fp.batch_augment_indexed(x[10:12], [11, 10])
         assert not torch.equal(other, whole[10:12])
-        assert not torch.equal(fp.batch_augment_indexed(x[:2], [0, 1], seed=43), whole[:2])
+        assert not torch.equal(fp.batch_augment_indexed(x[:2], [0, 1], base_key=prng.key(43)), whole[:2])
     finally:
         torch.set_num_threads(threads)
 
@@ -218,7 +219,7 @@ def test_zero_input_stays_zero_and_peak_is_one(mode, tbanks):
     fp = _augmenter(tbanks, parameters=params, **MODES[mode])
     x = music(batch=16, samples=T, channels=1)
     x[3] = 0.0
-    y = fp.batch_augment(x, generator=torch.Generator().manual_seed(0))
+    y = fp.batch_augment(x, key=prng.key(0))
     assert torch.isfinite(y).all()
     assert (y[3] == 0).all()
     peaks = y.abs().amax(-1).flatten()
@@ -231,7 +232,7 @@ def test_achieved_snr_matches_the_drawn_one(tbanks):
     params = dict(tparams.test_pipelines_parameters["bn_0"], min_snr_in_db=-10, max_snr_in_db=10)
     fp = _augmenter(tbanks, parameters=params, fast_chain=False)
     x = torch.from_numpy(music(batch=32, samples=T))
-    draws = fp.draw(32, T, torch.Generator().manual_seed(4))
+    draws = fp.draw(32, T, prng.key(4))
     y = fp.apply(x, draws)
     noise = y / y.abs().amax(-1, keepdim=True)  # y itself has peak 1
     bank_noise = fp.noise_bank.crop(draws[2]["scene"], draws[2]["row_u"], draws[2]["offset"], T)
@@ -249,7 +250,7 @@ def test_clip_fraction_of_the_recording_device_chain(tbanks):
                   proba_cutoff_freq2=0, proba_cutoff_freq3=0, max_percentile_threshold=0.2)
     fp = _augmenter(tbanks, parameters=params, fast_chain=False)
     x = torch.from_numpy(music(batch=16, samples=T))
-    draws = fp.draw(16, T, torch.Generator().manual_seed(1))
+    draws = fp.draw(16, T, prng.key(1))
     y = fp.apply(x, draws)
     # clipped samples sit on the row's largest or smallest value
     flat_top = ((y == y.amax(-1, keepdim=True)) | (y == y.amin(-1, keepdim=True))).float().mean(-1)
@@ -258,8 +259,8 @@ def test_clip_fraction_of_the_recording_device_chain(tbanks):
 
 def test_chain_draws_layout(tbanks):
     fast, exact = _augmenter(tbanks), _augmenter(tbanks, fast_chain=False)
-    a = fast.draw(6, T, torch.Generator().manual_seed(3))
-    b = exact.draw(6, T, torch.Generator().manual_seed(3))
+    a = fast.draw(6, T, prng.key(3))
+    b = exact.draw(6, T, prng.key(3))
     assert len(a) == len(b) == 8
     assert set(a[3]) == {"mask"} and set(b[3]) == {"mask", "gain_db"}
     for i in (0, 1, 2, 4, 5, 6, 7):
@@ -284,4 +285,4 @@ def test_default_device_is_the_card(tbanks):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         taugment.build_ir_bank(clips, SR)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        tnoise.gen_colored_noise(torch.Generator().manual_seed(0), 1.0, 100, SR)
+        tnoise.gen_colored_noise(prng.key(0), 1.0, 100, SR)

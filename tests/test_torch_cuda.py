@@ -25,6 +25,7 @@ from musicfpaugment_torch import convert
 from musicfpaugment_torch.afp.audfprint import AudfprintPeaks, DeviceMatcher, HashTable
 from musicfpaugment_torch.afp.audfprint import peaks as tp
 from musicfpaugment_torch.afp.audfprint import peaks_cuda
+from musicfpaugment_torch.core import prng
 from musicfpaugment_torch.data.synthetic import synthetic_clean_batches
 from musicfpaugment_torch.models import UNet
 from musicfpaugment_torch.testing import metrics as tmetrics
@@ -231,7 +232,7 @@ def test_augment_chain_on_card_matches_cpu(cuda_device, condition, mode):
     x = next(synthetic_clean_batches(16, 8 * 8000, seed=5))[:, None, :]
     x[3] = 0.0
     on_cpu.freeze_parameters(42)
-    draws = on_cpu.draw_indexed(range(16), 8 * 8000, 42)
+    draws = on_cpu.draw_indexed(range(16), 8 * 8000, prng.key(42))
     want = on_cpu.apply(x, draws)
     got = on_card.apply(x, draws)
     assert got.device.type == "cuda" and got.shape == want.shape
@@ -593,9 +594,8 @@ def test_sharded_augmenter_on_card_equals_apply(cuda_device):
     fp = AugmentFP(nb, 8000, parameters=default_parameters, impulse_response_dir=ib, device=cuda_device)
     _, queries = _mesh_corpus(n_queries=256)
     x = torch.from_numpy(queries).to(cuda_device)
-    shards = ShardedAugmenter(fp, [cuda_device, cuda_device]).batch_augment(
-        x, generator=torch.Generator().manual_seed(42))
-    whole = fp.apply(x, fp.draw(256, x.shape[-1], torch.Generator().manual_seed(42)))
+    shards = ShardedAugmenter(fp, [cuda_device, cuda_device]).batch_augment(x, key=prng.key(42))
+    whole = fp.apply(x, fp.draw(256, x.shape[-1], prng.key(42)))
     assert int((torch.cat(shards) != whole).sum()) == 0
 
 
@@ -693,3 +693,24 @@ def test_log_media_and_app_on_card(cuda_device, tmp_path):
     for out in streamlit_app.process_audio(x, [16000, 16000], model):
         sr, y = scipy.io.wavfile.read(io.BytesIO(out))
         assert sr == 16000 and y.shape == (16000,) and np.abs(y.astype(np.float64) / 32767).max() <= 1
+
+
+@pytest.mark.cuda
+def test_prng_and_corpus_on_the_card_equal_the_cpu(cuda_device):
+    """Threefry words, uniforms, randints and gates bit for bit; normals
+    within 2 ulp (the devices' log1p); corpus tracks within 1e-5 of the
+    peak."""
+    from musicfpaugment_torch.data.synthetic import synth_tracks_device
+
+    keys = prng.split(prng.key(42), 256)
+    on_card = keys.to(cuda_device)
+    for fn in (lambda k: prng.split(k, 8), lambda k: prng.fold_in(k, 77),
+               lambda k: prng.uniform(k, (64,), 80.0, 3500.0),
+               lambda k: prng.randint(k, (64,), 0, 271), lambda k: prng.bernoulli(k, 0.3, (64,))):
+        assert torch.equal(fn(on_card).cpu(), fn(keys))
+    want = prng.normal(keys, (64,)).numpy()
+    got = prng.normal(on_card, (64,)).cpu().numpy()
+    assert (np.abs(got - want) <= 2 * np.spacing(np.abs(want))).all()
+    a = synth_tracks_device(1234, range(4), 30 * 8000, device=cuda_device).cpu()
+    b = synth_tracks_device(1234, range(4), 30 * 8000, device="cpu")
+    assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())

@@ -17,6 +17,7 @@ import torch
 
 from musicfpaugment_torch.core import filters as tfilt
 from musicfpaugment_torch.core import noise as tnoise
+from musicfpaugment_torch.core import prng
 from musicfpaugment_torch.core import utils as tutils
 from torch_port_helpers import music, rel_err
 
@@ -126,10 +127,10 @@ def test_next_fast_len_and_object_dict():
 
 @pytest.mark.parametrize("f_decay", [-2.0, 0.0, 2.0])
 def test_colored_noise_statistics(f_decay):
-    """The stream cannot match JAX's, so the properties are held: unit RMS,
-    and a spectral slope of the sign f_decay asks for."""
-    g = torch.Generator().manual_seed(3)
-    noise = tnoise.batch_colored_noise(g, torch.full((4,), f_decay), 20000, SR)
+    """Unit RMS and a spectral slope of the sign f_decay asks for (the
+    white noise against JAX's: tests/test_torch_draws.py)."""
+    key = prng.key(3)
+    noise = tnoise.batch_colored_noise(key, torch.full((4,), f_decay), 20000, SR)
     assert noise.shape == (4, 20000) and noise.dtype == torch.float32
     # the second after the first repeats it
     assert torch.equal(noise[:, :SR], noise[:, SR : 2 * SR])
@@ -142,11 +143,10 @@ def test_colored_noise_statistics(f_decay):
         assert high > 4 * low
     else:
         assert 0.7 < float(low / high) < 1.4
-    again = tnoise.batch_colored_noise(
-        torch.Generator().manual_seed(3), torch.full((4,), f_decay), 20000, SR)
+    again = tnoise.batch_colored_noise(prng.key(3), torch.full((4,), f_decay), 20000, SR)
     assert torch.equal(noise, again)
-    one = tnoise.gen_colored_noise(
-        torch.Generator().manual_seed(3), f_decay, 500, SR, device="cpu")
+    # the batch's example 0 is one noise under the first key split from it
+    one = tnoise.gen_colored_noise(prng.split(key, 4)[0], f_decay, 500, SR, device="cpu")
     assert one.shape == (500,) and torch.equal(one, noise[0, :500])
 
 

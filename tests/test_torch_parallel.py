@@ -23,6 +23,7 @@ import torch
 from musicfpaugment_torch.afp.audfprint import AudfprintPeaks, DeviceMatcher, HashTable
 from musicfpaugment_torch.afp.dejavu import DejavuDeviceIndex, DejavuDeviceMatcher
 from musicfpaugment_torch.augment import AugmentFP, synthetic_banks
+from musicfpaugment_torch.core import prng
 from musicfpaugment_torch.parallel import (
     DATA_AXIS,
     ShardedAugmenter,
@@ -99,9 +100,9 @@ def test_sharded_augmenter_equals_apply_on_the_whole_batch(one_thread):
     x = torch.from_numpy(np.random.default_rng(3).standard_normal((16, 1, SR)).astype(np.float32))
     sa = ShardedAugmenter(fp, ["cpu", "cpu"])
     assert sa.num_devices == 2
-    shards = sa.batch_augment(x, generator=torch.Generator().manual_seed(4))
+    shards = sa.batch_augment(x, key=prng.key(4))
     assert [tuple(s.shape) for s in shards] == [(8, 1, SR)] * 2
-    whole = fp.apply(x, fp.draw(16, SR, torch.Generator().manual_seed(4)))
+    whole = fp.apply(x, fp.draw(16, SR, prng.key(4)))
     assert torch.equal(torch.cat(shards), whole)
     with pytest.raises(ValueError, match="not divisible"):
         sa.batch_augment(x[:3])

@@ -17,6 +17,7 @@ import torch
 
 from musicfpaugment_torch.augment import transforms as TT
 from musicfpaugment_torch.augment import compose as TC
+from musicfpaugment_torch.core import prng
 from musicfpaugment_tpu import augment as jaugment
 from musicfpaugment_tpu.augment import transforms as JT
 from torch_port_helpers import (
@@ -94,10 +95,9 @@ def test_transform_apply_matches_jax(case, p, channels, jbanks, tbanks):
 def test_p_zero_returns_input_before_any_draw(case, tbanks):
     _, tt = _pair(case, 0.0)
     x = torch.from_numpy(music(batch=2, samples=4000))
-    g = torch.Generator().manual_seed(1)
-    before = g.get_state()
-    y = tt(x, SR, generator=g, noise_bank=tbanks[0], ir_bank=tbanks[1])
-    assert y is x and torch.equal(g.get_state(), before)
+    # no key at all: a draw would fail on it
+    y = tt(None, x, SR, noise_bank=tbanks[0], ir_bank=tbanks[1])
+    assert y is x
 
 
 @pytest.mark.parametrize("batch_quantile", [False, True])
@@ -123,7 +123,7 @@ def test_peak_normalization_zero_row_and_peak():
     x = music(batch=3, samples=4000)
     x[1] = 0.0
     tt = TT.PeakNormalization(p=1)
-    y = tt(torch.from_numpy(x), SR, generator=torch.Generator().manual_seed(0))
+    y = tt(prng.key(0), torch.from_numpy(x), SR)
     assert (y[1] == 0).all()
     np.testing.assert_allclose(y.abs().amax(-1).numpy()[[0, 2]], 1.0, atol=1e-6)
 
@@ -146,22 +146,24 @@ def test_noise_bank_crop_equals_jax_sample(num_samples, jbanks, tbanks):
         pair, np.asarray(jbanks[0].sample_pair(key, 12, num_samples)), rtol=5e-6, atol=1e-6)
 
 
-def test_bank_draws_in_range_and_sampling(tbanks):
+def test_bank_draws_in_range_and_sampling(jbanks, tbanks):
     nb, ib = tbanks
-    g = torch.Generator().manual_seed(0)
-    u = torch.rand((4000, 3), generator=g, dtype=torch.float64)
-    d = nb.draw(u, SR)
+    key = prng.key(0)
+    d = nb.draw(key, 4000, SR)
     assert d["scene"].min() == 0 and d["scene"].max() == nb.scene_starts.shape[0] - 1
     assert d["offset"].min() >= 0 and nb.row_length - SR - 100 < d["offset"].max() <= nb.row_length - SR
-    assert nb.draw(torch.tensor([[0.0, 0.0, 1.0 - 1e-12]], dtype=torch.float64), SR)["offset"] == nb.row_length - SR
-    assert nb.draw(u, 5 * SR)["offset"].max() == 0  # crops longer than the row
-    idx = ib.draw(u[:, 0])
+    # the draws are the JAX bank's under the same key, to the bit
+    want = jax_noise_crop_draws(jax.random.PRNGKey(0), jbanks[0], 4000, SR)
+    for k, v in to_torch(want).items():
+        assert torch.equal(d[k], v), k
+    assert nb.draw(key, 4000, 5 * SR)["offset"].max() == 0  # crops longer than the row
+    idx = ib.draw(key, 4000)
     assert idx.min() == 0 and idx.max() == ib.num_irs - 1
-    crops = nb.sample(g, 5, SR)
+    crops = nb.sample(key, 5, SR)
     assert crops.shape == (5, SR)
     np.testing.assert_allclose(crops.square().mean(-1).sqrt().numpy(), 1.0, atol=1e-5)
-    assert nb.sample_pair(g, 5, SR).shape == (5, SR)
-    assert ib.sample(g, 3).shape == (3, ib.irs.shape[1])
+    assert nb.sample_pair(key, 5, SR).shape == (5, SR)
+    assert ib.sample(key, 3).shape == (3, ib.irs.shape[1])
     assert nb.num_clips == 8 and nb.to("cpu").device.type == "cpu" and ib.to("cpu").num_irs == 4
 
 
@@ -263,15 +265,15 @@ def test_compose_draw_apply_equals_call():
     x = torch.from_numpy(music(batch=4, samples=2000))
     c = TC.Compose(_gains())
     assert len(c) == 3
-    draws = c.draw(torch.Generator().manual_seed(5), 4, 2000)
+    draws = c.draw(prng.key(5), 4, 2000)
     assert len(draws) == 3 and all(d["mask"].all() for d in draws)
     y = c.apply(x, draws)
-    assert torch.equal(y, c(x, generator=torch.Generator().manual_seed(5)))
+    assert torch.equal(y, c(prng.key(5), x))
     db = 20 * torch.log10(y.abs().amax(-1) / x.abs().amax(-1))
     np.testing.assert_allclose(db.numpy(), 7.0, atol=0.05)
     rev = TC.Compose(c.transforms[::-1]).apply(x, draws[::-1])
     np.testing.assert_allclose(rev.numpy(), y.numpy(), rtol=1e-6)
-    shuffled = TC.Compose(_gains(), shuffle=True)(x, generator=torch.Generator().manual_seed(5))
+    shuffled = TC.Compose(_gains(), shuffle=True)(prng.key(5), x)
     np.testing.assert_allclose(shuffled.abs().amax().item(), y.abs().amax().item(), rtol=1e-3)
 
 
@@ -280,32 +282,32 @@ def test_someof_oneof_pick_subsets():
 
     random.seed(0)
     x = torch.from_numpy(music(batch=2, samples=2000))
-    g = torch.Generator().manual_seed(1)
+    keys = prng.split(prng.key(1), 31)
     seen = set()
-    for _ in range(20):
-        y = TC.OneOf(_gains())(x, generator=g)
+    for k in keys[:20]:
+        y = TC.OneOf(_gains())(k, x)
         seen.add(int(round(float(20 * torch.log10(y.abs().amax() / x.abs().amax())))))
     assert seen == {1, 2, 4}
     some = TC.SomeOf((2, None), _gains())
-    for _ in range(10):
-        some(x, generator=g)
+    for k in keys[20:30]:
+        some(k, x)
         assert 2 <= len(some.transform_indexes) <= 3
-    assert TC.SomeOf(1, _gains(), p=0.0)(x, generator=g) is x
+    assert TC.SomeOf(1, _gains(), p=0.0)(keys[30], x) is x
 
 
 def test_identity_keeps_the_other_stages_draws():
     """Replacing Gain by Identity leaves the draws of the stages after it
-    unchanged: every stage consumes one slot of uniforms."""
+    unchanged: every stage takes its key of the chain's split."""
     stages = [TT.Gain(p=1.0), TT.Clipping(p=1.0)]
-    a = TC.Compose(stages).draw(torch.Generator().manual_seed(9), 5, 100)
-    b = TC.Compose([TT.Identity(), stages[1]]).draw(torch.Generator().manual_seed(9), 5, 100)
+    a = TC.Compose(stages).draw(prng.key(9), 5, 100)
+    b = TC.Compose([TT.Identity(), stages[1]]).draw(prng.key(9), 5, 100)
     assert torch.equal(a[1]["quantile"], b[1]["quantile"])
     assert set(b[0]) == {"mask"}
 
 
 def test_cutoff_draws_stay_inside_the_mel_bounds():
     t = TT.HighPassFilter(min_cutoff_freq=30, max_cutoff_freq=150, p=0.5, sample_rate=SR)
-    d = t.draw(torch.Generator().manual_seed(0), 5000, 100)
+    d = t.draw(prng.key(0), 5000, 100)
     lo, hi = t.cutoff_bounds_mel()
     hz = d["cutoff"].numpy() * SR
     mel = 2595.0 * np.log10(1.0 + hz / 700.0)
@@ -326,6 +328,6 @@ def test_constructor_checks():
     with pytest.raises(ValueError):
         TT.AddBackgroundNoise(min_snr_in_db=3, max_snr_in_db=1)
     with pytest.raises(ValueError):
-        TT.ApplyImpulseResponse(p=1.0)(torch.zeros(1, 10), SR)
+        TT.ApplyImpulseResponse(p=1.0)(prng.key(0), torch.zeros(1, 10), SR)
     with pytest.raises(RuntimeError):
-        TT.Gain(p=1.0)(torch.zeros(10))
+        TT.Gain(p=1.0)(prng.key(0), torch.zeros(10))
