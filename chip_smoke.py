@@ -26,6 +26,17 @@ through the entry points a user calls:
              20-30 s tracks, mixed lengths; a 128-track batch of the
              reference-scale ingest, 30 s, 938 columns), with times, bounds
              and mismatch counts, which must be 0;
+3a. flax_init_dropout - the published UNet's starting weights
+             (``flax_init``: Flax's initialisers under ``PRNGKey(0)``) drawn
+             on the card against the CPU (mismatching elements, ulps,
+             seconds); the fused dropout kernel (``csrc/dropout_threefry.cu``)
+             against its plain version at the five sites of the training
+             shape (128 x 3 s, base 64: 203.4M elements), forward and
+             backward, float32 and bfloat16, 0 mismatching elements, with
+             ms, bound, plain ms and ``F.dropout``'s ms; one bfloat16 train
+             step with the kernel and with the plain route (ms each, 10
+             launches a step); a rate-0.05 ``Trainer`` step on the card and
+             on the CPU, each from its own ``flax_init`` (loss within 1e-5);
 4. ingest  - 10,000 synthetic 20-30 s tracks, generated on the card, indexed
              by ``create_fp_database`` into a full 2^20 x 100 ``HashTable``;
 5. match   - ``compute_accuracy_batched`` (batch 128, 4 shifts) over 1,024
@@ -88,10 +99,12 @@ through the entry points a user calls:
              augmentation with ``dcase_shaped_banks()`` inside each step,
              lr 1e-3, 2 epochs of 16 steps and 4 validation batches, with
              checkpoints; once in strict float32 and once in bfloat16 from
-             the same seeded weights: step ms, examples/s, TFLOP/s, peak
+             Flax's initial weights (the trainer draws them), dropout
+             through the kernel: step ms, examples/s, TFLOP/s, peak
              memory, the card's busy share over one step, the baseline and
-             per-epoch validation loss and PSNR (the loss must fall, every
-             number be finite); then a resume from the float32 run's
+             per-epoch validation loss and PSNR (the loss must fall from the
+             first epoch to the last, every number be finite); then a
+             resume from the float32 run's
              ``last_epoch`` that must run one more epoch;
 15. trained_denoiser - phases 11 and 12 again with the float32 run's best
              checkpoint as the denoiser, in strict float32, with TF32 allowed
@@ -99,7 +112,7 @@ through the entry points a user calls:
              metrics, and how far the two faster ones move verdicts, peak
              masks and the denoised F1;
 16. demucs - the published ``Demucs()`` (hidden 48, depth 5, x4 resampling,
-             causal LSTM of width 768) with seeded weights (the port's
+             causal LSTM of width 768) with seeded weights (PyTorch's
              initialisation, then ``rescale_params(0.1)``): its parameter
              and FLOP counts and a forward of 128 degraded 8 s queries in
              strict float32, with TF32 allowed and in bfloat16 (ms, TFLOP/s,
@@ -220,9 +233,12 @@ through the entry points a user calls:
              per step) and the bank's storage unmoved.
 
 Every phase prints a JSON line. Launch counters are zeroed just before
-ingest and read after match: both kernels must have launched in each (once
-per ingest batch, once per match batch whatever the number of shifts). They
-are zeroed again before the augmented conditions, before the denoised
+ingest and read after match: both prune kernels must have launched in each
+(once per ingest batch, once per match batch whatever the number of shifts).
+The dropout kernel's counter is zeroed just before and read just after each
+path that trains a UNet (phase 14's training, the parallel phase's steps,
+the scale proof's UNet ``train`` stage, the demo, the big-bank step): it
+must have launched in each. The prune counters are zeroed again before the augmented conditions, before the denoised
 accuracies, before the peak metrics, before the trained-denoiser runs,
 before each Demucs-denoised run, before the FMA index, before the FMA
 identification, before the mesh match and before each scale path (the
@@ -291,7 +307,8 @@ from musicfpaugment_torch.data.synthetic import (
     write_fma_tracks_csv,
 )
 from musicfpaugment_torch.device import cudnn_tf32
-from musicfpaugment_torch.models import Demucs, UNet, rescale_params
+from musicfpaugment_torch.models import Demucs, UNet, flax_init, rescale_params
+from musicfpaugment_torch.models import dropout as DROP
 from musicfpaugment_torch.models.demucs import STOP_AT
 from musicfpaugment_torch.models.streamer import DemucsStreamer
 from musicfpaugment_torch.parallel import ShardedAugmenter, init_multihost
@@ -504,6 +521,179 @@ def check_kernels(name, x, vf, sm_mhz):
             fail(f"{kname} at the {name} shape disagrees with its plain version "
                  f"in {mism} cells")
     return out
+
+
+# ---------------------------------------------------------- flax_init_dropout
+
+DROP_RATE = 0.05  # the training CLI's
+# per element: 20 threefry rounds of add, rotate, xor (60), six key
+# injections of two adds (12), the xor of the words, the uniform's shift, or,
+# subtract and compare (5), the counter's index arithmetic (~3): ~80 32-bit
+# operations, counted against the card's float32 rate (its integer rate is
+# no higher)
+DROP_OPS_PER_ELEMENT = 80
+DROP_STEP_CPU_BASE = 8  # the card-vs-CPU Trainer step: UNet(base=8), batch 8 x 3 s
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The tensor's bits as integers of its width (for exact comparisons)."""
+    return t.contiguous().view({4: torch.int32, 2: torch.int16, 8: torch.int64}[t.element_size()])
+
+
+def unet_site_shapes(dev, batch: int, spec: tuple) -> list:
+    """NCHW shapes of the five dropout sites of ``UNet(base=64)`` at a
+    (batch, *spec) spectrogram batch."""
+    model = UNet(1, 1, rate=DROP_RATE, base=64).to(dev).eval()
+    shapes = []
+    hooks = [m.register_forward_hook(lambda mod, args, out: shapes.append(tuple(args[0].shape)))
+             for m in model.dropouts]
+    with torch.no_grad():
+        model(torch.zeros((1, *spec), device=dev))
+    for h in hooks:
+        h.remove()
+    return [(batch, *s[1:]) for s in shapes]
+
+
+def flax_init_dropout_phase(dev) -> dict:
+    """Phase 3a: Flax's starting weights and dropout draws on the card.
+
+    The published UNet's starting weights drawn on the card against the
+    CPU's (``flax_init``: mismatching elements, largest distance in ulps,
+    seconds each); the fused dropout kernel against its plain version on
+    the same card tensors at the training shape (128 x 3 s, base 64: the
+    five sites, 203.4M elements a step), forward and backward, in float32
+    and bfloat16: 0 mismatching elements; its ms, bound, the plain
+    version's ms and ``F.dropout``'s (torch's Philox masks: a yardstick,
+    other draws); one bfloat16 train step with the kernel and with the
+    plain route, ms each, and the kernel's launches per step; one
+    strict float32 ``Trainer`` step at rate 0.05 on the card and on the
+    CPU, each from its own ``flax_init``: loss within 1e-5."""
+    t0 = time.perf_counter()
+    line = {"phase": "flax_init_dropout", "rate": DROP_RATE}
+    # -- the starting weights: card against CPU
+    t = time.perf_counter()
+    on_card = flax_init(UNet(1, 1, base=64).to(dev))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    on_cpu = flax_init(UNet(1, 1, base=64))
+    cpu_s = time.perf_counter() - t
+    mism, ulps, n = 0, 0.0, 0
+    for k, want in on_cpu.state_dict().items():
+        got = on_card.state_dict()[k].cpu()
+        n += want.numel()
+        if want.is_floating_point():
+            mism += int((_bits(got) != _bits(want)).sum())
+            ulps = max(ulps, _ulps(got.numpy(), want.numpy()))
+        else:
+            mism += int((got != want).sum())
+    line["init"] = {"model": "UNet(1, 1, base=64)", "elements": n, "card_s": card_s, "cpu_s": cpu_s,
+                    "mismatching_elements": mism, "max_ulps": ulps}
+    del on_card, on_cpu
+    # -- the kernel against its plain version at the five sites
+    spec = (257, 1 + TRAIN_SAMPLES // 256)
+    sites = unet_site_shapes(dev, TP.BATCH_SIZE, spec)
+    k_drop = prng.split(prng.split(prng.key(59)).unbind(-2)[1]).unbind(-2)[1]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    per_dtype = {}
+    for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        rows, totals = [], {"ms": 0.0, "plain_ms": 0.0, "torch_dropout_ms": 0.0, "bytes": 0, "ops": 0}
+        for i, shape in enumerate(sites):
+            key = prng.flax_fold(k_drop, f"Dropout_{i}", 1)
+            x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            xk, xp = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+            yk = DROP.dropout_cuda(xk, key, DROP_RATE)
+            yp = DROP.dropout_plain(xp, key, DROP_RATE)
+            yk.backward(g)
+            yp.backward(g)
+            torch.cuda.synchronize()
+            fwd_mism = int((_bits(yk.detach()) != _bits(yp.detach())).sum())
+            bwd_mism = int((_bits(xk.grad) != _bits(xp.grad)).sum())
+            err = max(float((yk.detach().float() - yp.detach().float()).abs().max()),
+                      float((xk.grad.float() - xp.grad.float()).abs().max()))
+            kept = float((yp.detach() != 0).float().mean())
+            del xk, xp, yk, yp, g
+            nbytes = 2 * x.numel() * x.element_size()
+            nops = DROP_OPS_PER_ELEMENT * x.numel()
+            b_ms, b_by = bound(nbytes, nops)
+            row = {"site": f"Dropout_{i}", "shape": list(shape), "elements": x.numel(),
+                   "forward_mismatch": fwd_mism, "backward_mismatch": bwd_mism, "max_abs_err": err,
+                   "kept_share": kept,
+                   "ms": gpu_ms(lambda: DROP.dropout_cuda(x, key, DROP_RATE), 20),
+                   "plain_ms": gpu_ms(lambda: DROP.dropout_plain(x, key, DROP_RATE), 2),
+                   "torch_dropout_ms": gpu_ms(lambda: torch.nn.functional.dropout(x, DROP_RATE), 20),
+                   "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": nops}
+            rows.append(row)
+            for k in totals:
+                totals[k] += row[k]
+            del x
+            torch.cuda.empty_cache()
+            if fwd_mism or bwd_mism:
+                fail(f"dropout_threefry {dname} at {row['site']} {list(shape)}: {fwd_mism} forward "
+                     f"and {bwd_mism} backward elements differ from the plain version")
+        totals["bound_ms"], totals["bound_by"] = bound(totals["bytes"], totals["ops"])
+        per_dtype[dname] = {"sites": rows, "step_forward": totals,
+                            "elements": sum(r["elements"] for r in rows),
+                            "max_abs_err": max(r["max_abs_err"] for r in rows)}
+    line["kernel"] = per_dtype
+    # -- one bfloat16 train step with the kernel and with the plain route
+    clean = next(synthetic_clean_batches(TP.BATCH_SIZE, TRAIN_SAMPLES, SR, seed=UNET_SEED))
+    aug = (0.7 * clean + 0.2 * np.random.default_rng(UNET_SEED).standard_normal(clean.shape)).astype(
+        np.float32)
+    clean_t, aug_t = torch.from_numpy(clean).to(dev), torch.from_numpy(aug).to(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(UNet(1, 1, rate=DROP_RATE, base=64, dtype=torch.bfloat16), iter(()), 1,
+                          iter(()), 1, TRAIN_LR, 2, tmp, input_type="spec", device=dev)
+    fused = DROP.dropout
+
+    def plain_route(x, key, rate, batch_offset=0):
+        return DROP.dropout_plain(x, key, rate, batch_offset)
+
+    times = {"kernel": [], "plain": []}
+    DROP.reset_launch_counts()
+    for route in ("kernel", "plain", "kernel", "plain", "plain", "kernel", "plain", "kernel"):
+        DROP.dropout = fused if route == "kernel" else plain_route
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            trainer.train_step(clean_t, aug_t)
+            torch.cuda.synchronize()
+            times[route].append((time.perf_counter() - t) * 1e3)
+        finally:
+            DROP.dropout = fused
+    launches = DROP.LAUNCHES["dropout_threefry"]
+    del trainer
+    torch.cuda.empty_cache()
+    kernel_steps = len(times["kernel"])
+    line["bf16_step"] = {
+        "model": "UNet(1, 1, rate=0.05, base=64, dtype=bfloat16)", "batch": TP.BATCH_SIZE,
+        "samples": TRAIN_SAMPLES,
+        "kernel_ms": float(np.median(times["kernel"][1:])), "plain_ms": float(np.median(times["plain"][1:])),
+        "kernel_ms_all": times["kernel"], "plain_ms_all": times["plain"],
+        "launches_per_step": launches / kernel_steps,
+    }
+    if launches != 10 * kernel_steps:
+        fail(f"dropout_threefry launched {launches} times in {kernel_steps} steps, not 10 a step")
+    # -- a Trainer step at rate 0.05, card against CPU, each from its own init
+    small = next(synthetic_clean_batches(8, TRAIN_SAMPLES, SR, seed=UNET_SEED))
+    small_aug = (0.7 * small + 0.2 * np.random.default_rng(1).standard_normal(small.shape)).astype(
+        np.float32)
+    losses = {}
+    for label, device in (("cpu", "cpu"), ("card", dev)):
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer = Trainer(UNet(1, 1, rate=DROP_RATE, base=DROP_STEP_CPU_BASE), iter(()), 1,
+                              iter(()), 1, TRAIN_LR, 2, tmp, input_type="spec", device=device)
+        losses[label] = float(trainer.train_step(torch.from_numpy(small).to(device),
+                                                 torch.from_numpy(small_aug).to(device))["loss"])
+    rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    line["trainer_step_card_vs_cpu"] = {"base": DROP_STEP_CPU_BASE, "batch": 8, "loss_cpu": losses["cpu"],
+                                        "loss_card": losses["card"], "loss_rel": rel}
+    line["seconds"] = time.perf_counter() - t0
+    emit(line)
+    if not rel <= MAX_STEP_LOSS_REL:
+        fail(f"a rate-0.05 Trainer step on the card is {rel} (relative) from the CPU's")
+    return line
 
 
 def wall_ms(fn, reps: int) -> float:
@@ -887,12 +1077,14 @@ def train_step_check(dev) -> dict:
     r = np.random.default_rng(UNET_SEED)
     aug = (0.7 * clean + 0.2 * r.standard_normal(clean.shape)).astype(np.float32)
     runs, probe_err = {}, None
+    torch.manual_seed(UNET_SEED)
+    weights = UNet(1, 1, rate=0.0, base=8).state_dict()
     for label, device, dtype in (("cpu", "cpu", torch.float32), ("card", dev, torch.float32),
                                  ("cpu64", "cpu", torch.float64), ("card64", dev, torch.float64)):
-        torch.manual_seed(UNET_SEED)
         with tempfile.TemporaryDirectory() as tmp:
             trainer = Trainer(UNet(1, 1, rate=0.0, base=8).to(dtype), iter(()), 1, iter(()), 1,
                               TRAIN_LR, 2, tmp, input_type="spec", device=device)
+        trainer.model.load_state_dict(weights)  # over the trainer's own (Flax) initial weights
         probe = conv_backward_probe(trainer.model) if label == "card" else None
         terms = trainer.train_step(torch.from_numpy(clean).to(device, dtype),
                                    torch.from_numpy(aug).to(device, dtype))
@@ -951,7 +1143,8 @@ def run_training(trainer: Trainer, clean: torch.Tensor, flops_step: float, label
     """Baseline validation, ``trainer.training_loop()`` with every step
     timed, then one step under the profiler: step ms, examples/s, TFLOP/s,
     peak memory, busy share and the loss curve, which must be finite and
-    whose validation loss must fall. Returns (run, profile)."""
+    whose validation loss must fall from the first epoch to the last.
+    Returns (run, profile)."""
     times = []
     step = trainer.train_step
 
@@ -994,15 +1187,20 @@ def run_training(trainer: Trainer, clean: torch.Tensor, flops_step: float, label
     losses = run["train_loss"] + run["val_loss"] + run["val_psnr"]
     if not all(math.isfinite(v) for v in losses):
         fail(f"{label}: a loss or PSNR is not finite: {losses}")
-    if not run["val_loss"][-1] < run["val_loss"][0]:
-        fail(f"{label}: the validation loss did not fall: {run['val_loss']}")
+    # from the first trained epoch: the baseline runs BatchNorm on its initial
+    # running statistics (mean 0, variance 1), under which Flax's initial
+    # UNet (zero biases) maps the small normalised spectrograms to ~0, an L1
+    # baseline no short run beats (0.0183 against 0.1335, 0.0228)
+    if not run["val_loss"][-1] < run["val_loss"][1]:
+        fail(f"{label}: the validation loss did not fall over the epochs: {run['val_loss']}")
     return run, prof
 
 
 def train_phase(dev, noise_bank, ir_bank, ckpt_root: str) -> str:
     """The published UNet (base=64, rate 0.05) trained on the card with
     default_parameters augmentation inside each step, once in strict float32
-    and once in bfloat16 from the same seeded weights: TRAIN_EPOCHS epochs of
+    and once in bfloat16 from Flax's initial weights (the trainer's, as the
+    JAX trainer's), dropout through the kernel: TRAIN_EPOCHS epochs of
     TRAIN_STEPS steps, checkpoints as ``--save`` writes them, then a resume
     from the float32 run's ``last_epoch`` and one more epoch. Returns the
     float32 run's best checkpoint path."""
@@ -1011,7 +1209,6 @@ def train_phase(dev, noise_bank, ir_bank, ckpt_root: str) -> str:
     train_batches, val_batches, data_s = training_batches()
 
     def make(dtype, ckpt, nb_epochs):
-        torch.manual_seed(UNET_SEED)
         return Trainer(
             UNet(1, 1, rate=0.05, base=64, dtype=dtype), cycle(train_batches), TRAIN_STEPS,
             cycle(val_batches), TRAIN_VAL_STEPS, TRAIN_LR, nb_epochs, ckpt, input_type="spec",
@@ -1130,9 +1327,9 @@ def trained_denoiser_phase(dev, ckpt_path, ht, dm, analyzer, queries, aug_defaul
 
 
 def seeded_demucs(seed: int, **kwargs) -> Demucs:
-    """A Demucs on the CPU with the port's own initialisation under
-    ``torch.manual_seed(seed)`` and then the reference's rescale (what the
-    CLI gives a fresh model), in eval mode."""
+    """A Demucs on the CPU with PyTorch's default initialisation under
+    ``torch.manual_seed(seed)`` and then the reference's rescale, in eval
+    mode."""
     torch.manual_seed(seed)
     return rescale_params(Demucs(**kwargs), reference=0.1).eval()
 
@@ -1383,12 +1580,14 @@ def demucs_train_step_check(dev) -> dict:
     r = np.random.default_rng(DEMUCS_SEED)
     aug = (0.7 * clean + 0.2 * r.standard_normal(clean.shape)).astype(np.float32)
     runs = {}
+    weights = seeded_demucs(DEMUCS_SEED, hidden=8, depth=3).state_dict()
     for label, device, dtype in (("cpu", "cpu", torch.float32), ("card", dev, torch.float32),
                                  ("cpu64", "cpu", torch.float64), ("card64", dev, torch.float64)):
         with tempfile.TemporaryDirectory() as tmp:
-            trainer = Trainer(seeded_demucs(DEMUCS_SEED, hidden=8, depth=3).to(dtype), iter(()), 1,
+            trainer = Trainer(Demucs(hidden=8, depth=3).to(dtype), iter(()), 1,
                               iter(()), 1, DEMUCS_TRAIN_LR, 2, tmp, input_type="audio",
                               factor_sc=TP.FACTOR_SC, factor_mag=TP.FACTOR_MAG, device=device)
+        trainer.model.load_state_dict(weights)  # over the trainer's own (Flax) initial weights
         terms = trainer.train_step(torch.from_numpy(clean).to(device, dtype),
                                    torch.from_numpy(aug).to(device, dtype))
         runs[label] = ({k: float(v) for k, v in terms.items()},
@@ -1417,8 +1616,9 @@ def demucs_train_phase(dev, noise_bank, ir_bank, ckpt_root: str) -> str:
     """Phase 19: the published Demucs trained by ``Trainer`` on the card
     ("audio": L1 + multi-resolution STFT, factors 0.5) with
     default_parameters augmentation inside each step, lr 5e-4, in strict
-    float32 and in bfloat16 from the same seeded weights. Returns the
-    float32 run's best checkpoint path."""
+    float32 and in bfloat16 from Flax's initial weights, rescaled (the
+    trainer's, as the JAX trainer's). Returns the float32 run's best
+    checkpoint path."""
     params = test_pipelines_parameters["default_parameters"]
     fp = AugmentFP(noise_bank, SR, parameters=params, impulse_response_dir=ir_bank, device=dev)
     train_batches, val_batches, data_s = training_batches()
@@ -1427,7 +1627,7 @@ def demucs_train_phase(dev, noise_bank, ir_bank, ckpt_root: str) -> str:
     runs = {}
     for label, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
         trainer = Trainer(
-            seeded_demucs(DEMUCS_SEED, dtype=dtype), cycle(train_batches), TRAIN_STEPS,
+            Demucs(dtype=dtype), cycle(train_batches), TRAIN_STEPS,
             cycle(val_batches), TRAIN_VAL_STEPS, DEMUCS_TRAIN_LR, TRAIN_EPOCHS + 1,
             os.path.join(ckpt_root, label), input_type="audio", augmenter=fp,
             factor_sc=TP.FACTOR_SC, factor_mag=TP.FACTOR_MAG,
@@ -1441,7 +1641,7 @@ def demucs_train_phase(dev, noise_bank, ir_bank, ckpt_root: str) -> str:
         del trainer, prof
         torch.cuda.empty_cache()
     emit({
-        "phase": "demucs_train", "model": "Demucs() rescaled, seed 48", "batch": TP.BATCH_SIZE,
+        "phase": "demucs_train", "model": "Demucs(), Flax's init rescaled", "batch": TP.BATCH_SIZE,
         "samples": TRAIN_SAMPLES, "augmentation": "default_parameters, dcase_shaped_banks()",
         "lr": DEMUCS_TRAIN_LR, "epochs": TRAIN_EPOCHS, "steps_per_epoch": TRAIN_STEPS,
         "val_steps": TRAIN_VAL_STEPS, "flops_forward_one": flops, "flops_step": flops_step,
@@ -2475,6 +2675,23 @@ def scale_args(module, stage: str, workdir: str, *flags):
     return module.parser().parse_args([stage, "--workdir", workdir, "--device", "cuda", *flags])
 
 
+DROPOUT_LAUNCHES: dict = {}  # the dropout kernel's launches on each training path
+
+
+def dropout_counted(label: str, fn):
+    """``fn()`` with the dropout kernel's counter zeroed just before and
+    read just after into ``DROPOUT_LAUNCHES[label]``, which must be > 0;
+    returns (result, launches)."""
+    torch.cuda.synchronize()
+    DROP.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    n = DROPOUT_LAUNCHES[label] = DROP.LAUNCHES["dropout_threefry"]
+    if n <= 0:
+        fail(f"the dropout kernel did not launch in {label}")
+    return out, n
+
+
 def counted(label: str, launches: dict, fn):
     """``fn()`` with the prune counters zeroed just before and read just
     after into ``launches[label]``; returns (result, seconds)."""
@@ -2560,8 +2777,12 @@ def scale_phases(dev, work: str) -> dict:
         ("demucs", ("--train-batch", str(SCALE_DEMUCS_TRAIN_BATCH)), SCALE_DEMUCS_QUERIES, "bn_m10"),
     ):
         t0 = time.perf_counter()
-        SP.stage_train(scale_args(SP, "train", sp_dir, "--model", model, "--banks", "dcase",
-                                  *SCALE_TRAIN, *flags))
+        train = lambda: SP.stage_train(scale_args(  # noqa: E731
+            SP, "train", sp_dir, "--model", model, "--banks", "dcase", *SCALE_TRAIN, *flags))
+        if model == "unet":
+            dropout_counted("scale_unet_train", train)
+        else:
+            train()
         train_s = time.perf_counter() - t0
         label = f"scale_{model}_denoised"
         _, seconds = counted(label, launches, lambda: SP.stage_match(scale_args(
@@ -2661,8 +2882,8 @@ def scale_phases(dev, work: str) -> dict:
 
     # ---- 42. the end-to-end demo at its quick size
     out_dir = os.path.join(work, "demo")
-    demo, seconds = counted("demo", launches, lambda: full_pipeline_demo.main(
-        [*DEMO_ARGS, "--out", out_dir]))
+    (demo, seconds), _ = dropout_counted("demo", lambda: counted(
+        "demo", launches, lambda: full_pipeline_demo.main([*DEMO_ARGS, "--out", out_dir])))
     emit({"phase": "full_pipeline_demo", "args": list(DEMO_ARGS), "seconds": seconds,
           "train_val_loss": demo["train_val_loss"],
           "accuracy": {c: demo[c]["accuracy"] for c in ("cleans", "bn_0", "full_hard", "reverb")},
@@ -2757,6 +2978,9 @@ def main() -> None:
     del x_scale
     emit({"phase": "kernels", "query": at_query, "stacked": at_stacked,
           "ingest": at_ingest, "scale_ingest": at_scale})
+
+    # ---- 3a. Flax's starting weights and the dropout kernel at the training shape
+    at_train = flax_init_dropout_phase(dev)
 
     # ---- 4. ingest (launch counters zeroed just before the main path)
     K.reset_launch_counts()
@@ -3038,7 +3262,8 @@ def main() -> None:
     # as the denoiser of phases 11 and 12
     train_step_check(dev)
     unet_ckpt_dir = tempfile.TemporaryDirectory()  # kept for phase 33
-    ckpt_path = train_phase(dev, noise_bank, ir_bank, unet_ckpt_dir.name)
+    ckpt_path, _ = dropout_counted("train", lambda: train_phase(
+        dev, noise_bank, ir_bank, unet_ckpt_dir.name))
     trained = trained_denoiser_phase(
         dev, ckpt_path, ht, dm, analyzer, queries, aug_default, den_names, q_paths,
         os.path.join(tmp, "cleans"))
@@ -3088,7 +3313,8 @@ def main() -> None:
     t_last = time.perf_counter()
     io_line = native_io_phase()
     launches_fma = fma_eval_phase(dev, tmp, io_line)
-    launches_mesh = parallel_phase(dev, noise_bank, ir_bank, queries, ht, dm, dj_idx)
+    launches_mesh, _ = dropout_counted("parallel", lambda: parallel_phase(
+        dev, noise_bank, ir_bank, queries, ht, dm, dj_idx))
     monitoring_phase(dev, noise_bank, ir_bank, unet_ckpt_dir.name, tmp)
     unet_ckpt_dir.cleanup()
     app_phase(dev)
@@ -3104,7 +3330,7 @@ def main() -> None:
     emit({"phase": "scale_phases", "seconds": time.perf_counter() - t_scale})
 
     # ---- 44. the training step with a 256 MB noise bank
-    big_bank_phase(dev)
+    dropout_counted("big_bank", lambda: big_bank_phase(dev))
 
     kernels = []
     for kname, line in (("forward_prune", 60), ("backward_prune", 113)):
@@ -3144,6 +3370,28 @@ def main() -> None:
             "scale_ingest_plain_ms": sc["plain_ms"], "scale_ingest_bound_ms": sc["bound_ms"],
             "scale_ingest_bound_by": sc["bound_by"],
         })
+    drop_f32, drop_bf16 = at_train["kernel"]["float32"], at_train["kernel"]["bfloat16"]
+    kernels.append({
+        "name": "dropout_threefry", "route": "cuda",
+        "source": "musicfpaugment_torch/csrc/dropout_threefry.cu",
+        # no Pallas kernel: XLA generates the JAX UNet's flax.linen.Dropout
+        "replaces": "musicfpaugment_tpu/models/unet.py:115",
+        "launches": sum(DROPOUT_LAUNCHES.values()),
+        **{f"launches_{label}": n for label, n in DROPOUT_LAUNCHES.items()},
+        "launches_per_train_step": at_train["bf16_step"]["launches_per_step"],
+        "max_abs_err": max(drop_f32["max_abs_err"], drop_bf16["max_abs_err"]),
+        "ms": drop_bf16["step_forward"]["ms"], "plain_ms": drop_bf16["step_forward"]["plain_ms"],
+        "bound_ms": drop_bf16["step_forward"]["bound_ms"],
+        "bound_by": drop_bf16["step_forward"]["bound_by"], "library_ms": None,
+        "shape": "the five sites of one bfloat16 training step's forward, 128 x 3 s, base 64",
+        "elements": drop_bf16["elements"],
+        "float32_ms": drop_f32["step_forward"]["ms"], "float32_plain_ms": drop_f32["step_forward"]["plain_ms"],
+        "float32_bound_ms": drop_f32["step_forward"]["bound_ms"],
+        "float32_bound_by": drop_f32["step_forward"]["bound_by"],
+        "torch_dropout_ms_other_masks": drop_bf16["step_forward"]["torch_dropout_ms"],
+        "bf16_train_step_ms": at_train["bf16_step"]["kernel_ms"],
+        "bf16_train_step_plain_route_ms": at_train["bf16_step"]["plain_ms"],
+    })
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi_line, flush=True)
     emit({"kernels": kernels})

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, on first use, under ``build/<hash>/`` in
-this package (``.gitignore``d). The hash covers the sources and the flags,
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a``, all at
+once, and the objects are linked into one shared library with a plain C
+interface, on first use, under ``build/<hash>/`` in this package
+(``.gitignore``d). The hash covers the sources and the flags,
 so an edited source builds anew and an unchanged one is loaded as it is.
 The library is opened with ``ctypes``; pointers and the stream go in as
 ``c_void_p``.
@@ -25,8 +26,8 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    # the 32 kernel instances are optimised in parallel (CUDA 12.1 or later)
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    # a file's kernel instances are optimised in parallel (CUDA 12.1 or later)
     "--split-compile", "0",
 ]
 
@@ -36,12 +37,17 @@ _lib: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signatures of csrc/peaks_prune.cu
+_I64 = ctypes.c_int64
+_U32 = ctypes.c_uint32
+_U64 = ctypes.c_uint64
+# C signatures of csrc/peaks_prune.cu and csrc/dropout_threefry.cu
 _SIGNATURES = {
     # sgram, out, gauss, B, C, F, a_dec, maxpks, stream
     "mfpa_forward_prune": [_P, _P, _P, _I, _I, _I, _F, _I, _P],
     # sgram, peaks, valid_frames (nullable), out, gauss, B, C, F, a_dec, maxpks, stream
     "mfpa_backward_prune": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    # x, out, dtype, B, C, H, W, k0, k1, offset, keep, keep_t, stream
+    "mfpa_dropout_threefry": [_P, _P, _I, _I64, _I, _I, _I, _U32, _U32, _U64, _F, _F, _P],
 }
 
 
@@ -79,15 +85,32 @@ def build(verbose: bool = False) -> str:
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, *srcs]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    if verbose:  # ptxas register / spill report
-        print(proc.stderr, end="", file=sys.stderr)
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    objs = [os.path.join(out_dir, f"{os.path.basename(src)}.{tag}.o") for src in srcs]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj, src],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for src, obj in zip(srcs, objs)
+    ]
+    try:
+        failed = []
+        for src, proc in zip(srcs, procs):
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(src)} ({proc.returncode}):\n{out}\n{err}")
+            elif verbose:  # ptxas register / spill report
+                print(err, end="", file=sys.stderr)
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = f"{lib_path}.{tag}.tmp"
+        proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objs], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"linking failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, lib_path)
     return lib_path
 

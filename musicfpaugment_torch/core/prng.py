@@ -1,6 +1,7 @@
 """The part of ``jax.random`` that the JAX package draws from: threefry-2x32
-keys, ``split``, ``fold_in`` and the ``uniform``, ``randint``, ``bernoulli``
-and ``normal`` samplers, as plain tensor functions.
+keys, ``split``, ``fold_in`` and the ``uniform``, ``randint``, ``bernoulli``,
+``normal``, ``truncated_normal`` and ``orthogonal`` samplers, as plain tensor
+functions; and Flax's fold of a module path into a key (``flax_fold``).
 
 Bits follow JAX's partitionable threefry (``jax_threefry_partitionable``,
 the default since JAX 0.5): a key is two 32-bit words; ``split(key, n)``
@@ -15,11 +16,15 @@ leading batch of keys is allowed everywhere: the samplers return
 ``(*keys.shape[:-1], *shape)``). ``uniform`` and ``bernoulli`` are bit for
 bit JAX's; ``randint`` too; ``normal`` evaluates XLA's float32 ``erf_inv``
 polynomial over a correctly rounded ``log1p``, so it agrees with JAX to an
-ulp or two and is the same on every device.
+ulp or two and is the same on every device; ``truncated_normal`` likewise.
+``orthogonal`` takes a QR of normal draws, LAPACK's or the device
+library's, so it agrees with JAX to ~1e-7, not to the bit. Every sampler
+runs on the device of its key.
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
 from typing import Sequence, Tuple, Union
 
@@ -80,18 +85,19 @@ def as_key(k, device: DeviceLike = None) -> torch.Tensor:
     return out & MASK32
 
 
-def _counters(shape: Tuple[int, ...], device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The 64-bit iota over ``shape`` as (high word, low word)."""
+def _counters(shape: Tuple[int, ...], device, offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 64-bit iota over ``shape``, from ``offset``, as (high word, low
+    word)."""
     n = math.prod(shape)
-    flat = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+    flat = torch.arange(offset, offset + n, dtype=torch.int64, device=device).reshape(shape)
     return flat >> 32, flat & MASK32
 
 
-def _hash(keys: torch.Tensor, shape: Tuple[int, ...]):
-    """Both output words of the hash of ``shape``'s counters under every
-    key: (*keys.shape[:-1], *shape) each."""
+def _hash(keys: torch.Tensor, shape: Tuple[int, ...], offset: int = 0):
+    """Both output words of the hash of ``shape``'s counters (from
+    ``offset``) under every key: (*keys.shape[:-1], *shape) each."""
     keys = as_key(keys)
-    hi, lo = _counters(shape, keys.device)
+    hi, lo = _counters(shape, keys.device, offset)
     lead = keys.shape[:-1]
     view = lead + (1,) * len(shape)
     k0 = keys[..., 0].reshape(view)
@@ -114,9 +120,30 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(b0, b1), dim=-1)
 
 
-def random_bits(keys: torch.Tensor, shape: Shape) -> torch.Tensor:
-    """32 random bits per element, (..., *shape) int64."""
-    b0, b1 = _hash(keys, _shape(shape))
+def flax_fold(keys: torch.Tensor, *path: Union[str, int]) -> torch.Tensor:
+    """Flax's ``LazyRng`` fold of static data into a key: the SHA-1 of the
+    strings (UTF-8) and ints (big-endian, fewest bytes) of ``path`` one
+    after another, whose first 4 bytes are ``fold_in``. A module's
+    parameter ``n`` (in creation order, from 1) under ``model.init(key)``
+    takes ``flax_fold(key, *module_path, n)``; ``make_rng("dropout")`` in
+    a module takes ``flax_fold(key, *module_path, 1)`` at its first call."""
+    if not path:
+        return as_key(keys)
+    m = hashlib.sha1()
+    for x in path:
+        if isinstance(x, str):
+            m.update(x.encode("utf-8"))
+        elif isinstance(x, int) and x >= 0:
+            m.update(x.to_bytes((x.bit_length() + 7) // 8, byteorder="big"))
+        else:
+            raise ValueError(f"expected a string or a non-negative int, got {x!r}")
+    return fold_in(keys, int.from_bytes(m.digest()[:4], byteorder="big"))
+
+
+def random_bits(keys: torch.Tensor, shape: Shape, offset: int = 0) -> torch.Tensor:
+    """32 random bits per element, (..., *shape) int64. ``offset`` > 0
+    gives the elements ``offset ..`` of a larger draw (its flat index)."""
+    b0, b1 = _hash(keys, _shape(shape), offset)
     return b0 ^ b1
 
 
@@ -124,15 +151,16 @@ def _f32(v, device) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32, device=device)
 
 
-def uniform(keys: torch.Tensor, shape: Shape = (), minval=0.0, maxval=1.0) -> torch.Tensor:
+def uniform(keys: torch.Tensor, shape: Shape = (), minval=0.0, maxval=1.0, offset: int = 0) -> torch.Tensor:
     """``jax.random.uniform`` in float32: the top 23 bits as the mantissa
     of a float in [1, 2), minus 1, scaled to [minval, maxval).
 
     XLA contracts the scaling ``u * (maxval - minval) + minval`` into one
     fused multiply-add. The product of two float32 values is exact in
     float64, so the float64 sum rounded to float32 is that FMA (a double
-    rounding could differ once in ~2**28 draws)."""
-    bits = random_bits(keys, shape)
+    rounding could differ once in ~2**28 draws). ``offset`` as in
+    :func:`random_bits`."""
+    bits = random_bits(keys, shape, offset)
     one = (bits >> 9) | 0x3F800000
     floats = one.to(torch.int32).view(torch.float32) - 1.0
     lo = _f32(minval, floats.device)
@@ -141,9 +169,10 @@ def uniform(keys: torch.Tensor, shape: Shape = (), minval=0.0, maxval=1.0) -> to
     return torch.maximum(lo, scaled)
 
 
-def bernoulli(keys: torch.Tensor, p: float = 0.5, shape: Shape = ()) -> torch.Tensor:
-    """``jax.random.bernoulli`` (mode "low"): uniform < p in float32."""
-    u = uniform(keys, shape)
+def bernoulli(keys: torch.Tensor, p: float = 0.5, shape: Shape = (), offset: int = 0) -> torch.Tensor:
+    """``jax.random.bernoulli`` (mode "low"): uniform < p in float32, as JAX
+    draws it with x64 off. ``offset`` as in :func:`random_bits`."""
+    u = uniform(keys, shape, offset=offset)
     return u < _f32(p, u.device)
 
 
@@ -199,17 +228,49 @@ def normal(keys: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
     return _f32(math.sqrt(2), u.device) * erfinv32(u)
 
 
+def _round32(v: float) -> float:
+    return float(torch.tensor(v, dtype=torch.float32))
+
+
+def truncated_normal(keys: torch.Tensor, lower: float, upper: float, shape: Shape = ()) -> torch.Tensor:
+    """``jax.random.truncated_normal`` in float32: uniform between
+    ``erf(lower / sqrt 2)`` and ``erf(upper / sqrt 2)`` (each correctly
+    rounded, which XLA's float32 ``erf`` gives at the bounds Flax uses),
+    ``sqrt(2) erfinv``, clipped to the open interval."""
+    sqrt2 = _round32(math.sqrt(2))
+    lo, hi = _round32(lower), _round32(upper)
+    a, b = (_round32(math.erf(_round32(v / sqrt2))) for v in (lo, hi))
+    u = uniform(keys, shape, a, b)
+    out = _f32(sqrt2, u.device) * erfinv32(u)
+    inside = torch.nextafter(_f32([lo, hi], "cpu"), _f32([math.inf, -math.inf], "cpu")).tolist()
+    return out.clamp(*inside)
+
+
+def orthogonal(keys: torch.Tensor, n: int, m: int = None) -> torch.Tensor:
+    """``jax.random.orthogonal(key, n, (), float32, m)``: an (n, m) matrix
+    with orthonormal columns (rows, if n < m), the Q of the QR of normal
+    draws with the signs of R's diagonal folded in. One key."""
+    m = n if m is None else m
+    z = normal(keys, (max(n, m), min(n, m)))
+    q, r = torch.linalg.qr(z)
+    q = q * torch.sign(torch.diagonal(r, dim1=-2, dim2=-1)).unsqueeze(-2)
+    return q.mT if n < m else q
+
+
 __all__ = [
     "PRNGKey",
     "as_key",
     "bernoulli",
     "erfinv32",
+    "flax_fold",
     "fold_in",
     "key",
     "normal",
+    "orthogonal",
     "randint",
     "random_bits",
     "split",
     "threefry2x32",
+    "truncated_normal",
     "uniform",
 ]

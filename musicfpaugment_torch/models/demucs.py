@@ -11,9 +11,10 @@ downsampled after the decoder, trimmed to their length and scaled back.
 The layers are ``torch.nn`` modules (cuDNN on the card): the JAX model's are
 XLA convolutions and LSTM cells, it reaches no Pallas kernel.
 
-Fresh weights are PyTorch's default initialisation, the original
-reference's, not Flax's; :func:`rescale_params` is the reference's rescale
-(the JAX trainer applies it at init, here the caller does).
+A fresh model holds PyTorch's default initialisation;
+``models.flax_init`` gives it the JAX package's (Flax's initialisers under
+``PRNGKey(0)``), and :func:`rescale_params` is the reference's rescale,
+which the trainer applies after it as the JAX trainer does.
 ``convert.demucs_state_dict_from_flax`` carries Flax weights across.
 
 The JAX model's ``fused_frontend`` (the x4 resampling folded into the first

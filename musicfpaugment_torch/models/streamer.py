@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from musicfpaugment_torch.core.resample import downsample2, upsample2
 from musicfpaugment_torch.device import cudnn_tf32
 from musicfpaugment_torch.models.demucs import Demucs
+from musicfpaugment_torch.models.flax_init import flax_init
 
 
 class DemucsStreamer:
@@ -214,8 +215,8 @@ def _benchmark(argv=None) -> None:
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
     sr_ms = args.sample_rate / 1000
-    torch.manual_seed(0)
-    demucs = Demucs(hidden=args.hidden, depth=args.depth, resample=args.resample).to(device).eval()
+    demucs = Demucs(hidden=args.hidden, depth=args.depth, resample=args.resample).to(device)
+    demucs = flax_init(demucs).eval()  # the JAX streamer's demucs.init(PRNGKey(0), x)
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((1, int(args.sample_rate * args.seconds)), dtype=np.float32))
     with torch.inference_mode():

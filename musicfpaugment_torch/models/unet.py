@@ -4,12 +4,16 @@ musicfpaugment_tpu/models/unet.py).
 4-down / 4-up UNet, ``base`` -> 16 * ``base`` channels, DoubleConv = 2 x
 [3x3 conv (no bias) + BatchNorm + ReLU], 2x2 max-pool down, 2x2 stride-2
 transposed conv (or bilinear resize) up, skip concat with the odd-size pad
-fix, 1x1 output conv, dropout on the inner levels. The layout is NCHW with
+fix, 1x1 output conv, dropout on the inner levels (Flax's draws:
+``models/dropout.py``). The layout is NCHW with
 H = frequency and W = time, the spatial order of the JAX model's NHWC;
 inputs are (batch, freq, time) magnitude spectrograms, the channel axis is
 added inside. ``eval()`` is the JAX model's ``train=False``, ``train()`` its
-``train=True``. The layers are ``torch.nn`` modules (cuDNN on the card): the
-JAX model's are XLA convolutions, it reaches no Pallas kernel.
+``train=True``; a training forward at ``rate > 0`` takes the step's dropout
+key (the JAX model's ``rngs={"dropout": key}``). The layers are
+``torch.nn`` modules (cuDNN on the card) but for the dropout, a kernel of
+this port on the card: the JAX model's are XLA convolutions, it reaches no
+Pallas kernel.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from musicfpaugment_torch.device import cudnn_tf32
+from musicfpaugment_torch.models.dropout import FlaxDropout
 
 __all__ = ["FlaxBatchNorm2d", "DoubleConv", "Down", "Up", "UNet", "cudnn_tf32"]
 
@@ -161,32 +166,41 @@ class UNet(nn.Module):
         self.up3 = Up(4 * b // factor, 2 * b, 2 * b // factor, bilinear)
         self.up4 = Up(2 * b // factor, b, b, bilinear)
         self.outc = nn.Conv2d(b, n_classes, 1)
-        self.dropout = nn.Dropout(rate)
+        # Flax's Dropout_0 .. Dropout_4, in call order
+        self.dropouts = nn.ModuleList(FlaxDropout(rate, i) for i in range(5))
 
-    def body(self, x: torch.Tensor) -> torch.Tensor:
+    def body(self, x: torch.Tensor, dropout_key: Optional[torch.Tensor] = None,
+             batch_offset: int = 0) -> torch.Tensor:
         """(B, n_channels, F, T) -> (B, base, F, T), everything before the
         1x1 output conv, under whatever precision context the caller set."""
+        def drop(i: int, h: torch.Tensor) -> torch.Tensor:
+            return self.dropouts[i](h, dropout_key, batch_offset)
+
         x1 = self.inc(x)
-        x2 = self.dropout(self.down1(x1))
-        x3 = self.dropout(self.down2(x2))
-        x4 = self.dropout(self.down3(x3))
-        x5 = self.dropout(self.down4(x4))
-        h = self.dropout(self.up1(x5, x4))
+        x2 = drop(0, self.down1(x1))
+        x3 = drop(1, self.down2(x2))
+        x4 = drop(2, self.down3(x3))
+        x5 = drop(3, self.down4(x4))
+        h = drop(4, self.up1(x5, x4))
         h = self.up2(h, x3)
         h = self.up3(h, x2)
         return self.up4(h, x1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (batch, freq, time) or (batch, channels, freq, time)."""
+    def forward(self, x: torch.Tensor, dropout_key: Optional[torch.Tensor] = None,
+                batch_offset: int = 0) -> torch.Tensor:
+        """x: (batch, freq, time) or (batch, channels, freq, time).
+        ``dropout_key``: the dropout key of a training forward (required at
+        ``rate > 0``); ``batch_offset``: the index of ``x``'s first example
+        in the global batch whose mask the key draws (a rank's slice)."""
         squeeze_channel = x.ndim == 3
         if squeeze_channel:
             x = x[:, None]
         if self.dtype is None:
             with cudnn_tf32(False):
-                logits = self.outc(self.body(x))
+                logits = self.outc(self.body(x, dropout_key, batch_offset))
         else:
             with torch.autocast(x.device.type, dtype=self.dtype):
-                h = self.body(x)
+                h = self.body(x, dropout_key, batch_offset)
             with cudnn_tf32(False), torch.autocast(x.device.type, enabled=False):
                 logits = self.outc(h.float())
         if squeeze_channel and self.n_classes == 1:

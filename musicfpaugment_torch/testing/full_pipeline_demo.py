@@ -32,7 +32,7 @@ from musicfpaugment_torch.augment import AugmentFP, synthetic_banks
 from musicfpaugment_torch.convert import demucs_denoiser, unet_denoiser
 from musicfpaugment_torch.data.synthetic import synthetic_clean_batches
 from musicfpaugment_torch.device import resolve_device
-from musicfpaugment_torch.models import Demucs, UNet, rescale_params
+from musicfpaugment_torch.models import Demucs, UNet
 from musicfpaugment_torch.testing.audfprint_exps import (
     compute_accuracy_batched,
     compute_peaks_metrics,
@@ -82,7 +82,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.model == "unet":
         model, input_type, lr = UNet(1, 1, rate=0.05), "spec", 1e-3
     else:
-        model, input_type, lr = rescale_params(Demucs(), 0.1), "audio", 5e-4
+        model, input_type, lr = Demucs(), "audio", 5e-4
     with tempfile.TemporaryDirectory() as ckpt:
         trainer = Trainer(
             model=model,

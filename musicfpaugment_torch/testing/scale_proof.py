@@ -66,7 +66,7 @@ from musicfpaugment_torch.augment import AugmentFP, dcase_shaped_banks, syntheti
 from musicfpaugment_torch.convert import demucs_denoiser, unet_denoiser
 from musicfpaugment_torch.data.synthetic import synth_tracks_device, synthetic_clean_batches
 from musicfpaugment_torch.device import resolve_device
-from musicfpaugment_torch.models import Demucs, UNet, rescale_params
+from musicfpaugment_torch.models import Demucs, UNet
 from musicfpaugment_torch.testing.metrics import batch_peak_metrics, batch_psnr
 from musicfpaugment_torch.testing.parameters import afp_settings, test_pipelines_parameters
 from musicfpaugment_torch.train.trainer import Trainer
@@ -293,11 +293,11 @@ def stage_train(args) -> None:
     os.makedirs(args.workdir, exist_ok=True)
     noise_bank, ir_bank = banks(args.banks, args.bank_hours, dev)
     augmenter = AugmentFP(noise_bank, SR, impulse_response_dir=ir_bank, device=dev)
-    torch.manual_seed(0)
+    # the Trainer gives the model the JAX trainer's starting weights
     if args.model == "unet":
         model, input_type = UNet(1, 1, rate=0.05), "spec"
     else:
-        model, input_type = rescale_params(Demucs(), 0.1), "audio"
+        model, input_type = Demucs(), "audio"
     t0 = time.time()
     with tempfile.TemporaryDirectory() as ckpt:
         trainer = Trainer(

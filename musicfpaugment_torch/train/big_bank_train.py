@@ -59,7 +59,6 @@ def time_steps(noise_bank, ir_bank, clean: np.ndarray, steps: int, device) -> di
     ptr = noise_bank.clips.data_ptr()
     cuda = device.type == "cuda"
     with tempfile.TemporaryDirectory() as tmp:
-        torch.manual_seed(0)
         trainer = Trainer(
             UNet(1, 1, rate=0.05, base=8), iter([clean] * (steps + 1)), steps + 1,
             iter([clean]), 1, 1e-3, 1, tmp, input_type="spec", augmenter=augmenter,

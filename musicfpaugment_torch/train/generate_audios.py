@@ -8,8 +8,9 @@ spectrogram figures.
 The clean clip is a random window of a validation track where MTG-Jamendo
 is mounted (``MFPA_JAMENDO_ROOT``), a synthetic one otherwise. The model is
 the trainer's checkpoint (``state.pt`` under ``<checkpoint>/best_epoch``;
-default: the train CLI's checkpoint directory for the model), or a seeded
-random one when there is none. The denoised wav is written for Demucs (a
+default: the train CLI's checkpoint directory for the model), or the JAX
+package's random one when there is none (Flax's initial weights under
+``PRNGKey(0)``). The denoised wav is written for Demucs (a
 waveform denoiser); the UNet denoises spectrograms, so it gets the denoised
 figure only. The figures are written when matplotlib imports.
 """
@@ -26,7 +27,7 @@ import torch
 from musicfpaugment_torch.augment.pipeline import AugmentFP, synthetic_banks
 from musicfpaugment_torch.core import prng
 from musicfpaugment_torch.device import cudnn_tf32, resolve_device
-from musicfpaugment_torch.models import Demucs, UNet
+from musicfpaugment_torch.models import Demucs, UNet, flax_init
 from musicfpaugment_torch.train import parameters as P
 from musicfpaugment_torch.train.trainer import spectrogram_batch
 
@@ -90,16 +91,17 @@ def main(argv: Optional[Sequence[str]] = None) -> List[str]:
     clean_t = torch.from_numpy(np.ascontiguousarray(clean, np.float32)).to(device)
     augmented = augmenter(clean_t, key=prng.key(args.seed))
 
-    torch.manual_seed(args.seed)  # the random model, where there is no checkpoint
-    model = UNet(1, 1, rate=0.05) if args.model == "unet" else Demucs()
+    model = (UNet(1, 1, rate=0.05) if args.model == "unet" else Demucs()).to(device)
     ckpt = args.checkpoint or os.path.join(
         CHECKPOINT_ROOT, f"{args.model}_lr_{LEARNING_RATES[args.model]}_BS_{P.BATCH_SIZE}"
     )
     try:
         load_checkpoint(model, ckpt)
     except FileNotFoundError:
-        print(f"INFO: no checkpoint at {ckpt} — using a random model (seed {args.seed})")
-    model = model.to(device).eval()
+        # the JAX package's random model: Flax's init under PRNGKey(0), no rescale
+        print(f"INFO: no checkpoint at {ckpt} — using Flax's initial weights (PRNGKey(0))")
+        flax_init(model)
+    model = model.eval()
 
     with torch.no_grad(), cudnn_tf32(False):
         if args.model == "unet":

@@ -24,7 +24,7 @@ import torch
 from musicfpaugment_torch.augment.pipeline import AugmentFP, synthetic_banks
 from musicfpaugment_torch.data.synthetic import synthetic_clean_batches
 from musicfpaugment_torch.device import DeviceLike, resolve_device
-from musicfpaugment_torch.models import Demucs, UNet, rescale_params
+from musicfpaugment_torch.models import Demucs, UNet
 from musicfpaugment_torch.train import parameters as P
 from musicfpaugment_torch.train.trainer import EarlyStopping, ReduceLROnPlateau, Trainer
 from musicfpaugment_torch.train.utils import fix_random_seeds
@@ -110,8 +110,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
         input_type = "spec"
     else:
         learning_rate = 5e-4
-        # the reference's rescale of a fresh model (the JAX trainer's init)
-        model = rescale_params(Demucs(dtype=dtype), reference=0.1)
+        # the Trainer draws Flax's weights and rescales them (the JAX trainer's init)
+        model = Demucs(dtype=dtype)
         input_type = "audio"
     ckpt_name = f"{args.model}_lr_{learning_rate}_BS_{args.batch_size}"
     ckpt_path = os.path.join(CHECKPOINT_ROOT, ckpt_name)

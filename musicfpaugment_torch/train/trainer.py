@@ -2,14 +2,19 @@
 TensorBoard monitoring and data-parallel training (port of
 musicfpaugment_tpu/train/trainer.py).
 
+The model starts where the JAX trainer's starts: Flax's initialisers under
+``PRNGKey(0)`` (``models.flax_init``), then the rescale for a Demucs.
+
 One training step: the clean batch goes to the device, ``AugmentFP`` degrades
-it there (its draws are made on the host under the step's threefry key, split
-from ``PRNGKey(seed)`` as the JAX trainer splits its keys, so a step's
-augmented batch is the JAX trainer's), then spectrograms, the forward, the
-loss, the backward pass and the Adam update. Two input types: ``"spec"`` (the UNet: L1 on per-example
-max-normalised magnitude spectrograms, the running statistics updated) and
-``"audio"`` (Demucs: L1 + multi-resolution STFT). Validation adds
-the micro-PSNR and steps the plateau scheduler on the validation loss.
+it there (its draws are made on the host under the first half of the step's
+threefry key, split from ``PRNGKey(seed)`` as the JAX trainer splits its
+keys, so a step's augmented batch is the JAX trainer's), then spectrograms,
+the forward (the UNet's dropout draws Flax's masks under the second half),
+the loss, the backward pass and the Adam update. Two input types: ``"spec"``
+(the UNet: L1 on per-example max-normalised magnitude spectrograms, the
+running statistics updated) and ``"audio"`` (Demucs: L1 + multi-resolution
+STFT). Validation adds the micro-PSNR and steps the plateau scheduler on the
+validation loss.
 
 Precision: the whole step runs with cuDNN's TF32 off, backward pass
 included, so a model with ``dtype=None`` trains in strict float32; a UNet
@@ -24,11 +29,11 @@ Data parallelism: when a ``torch.distributed`` process group is up
 (``parallel.init_multihost``), the model trains under
 ``DistributedDataParallel``. Every rank reads the same global batch and the
 same draws (under the same key) and takes its slice, and the
-UNet's BatchNorm normalises by the global batch's statistics, so N ranks
-compute what one process computes on the global batch (dropout aside: its
-masks are each rank's own). The loss terms and the PSNR are reduced over
-the ranks; rank 0 writes the checkpoints and the monitoring, every rank
-resumes from the checkpoints.
+UNet's BatchNorm normalises by the global batch's statistics and its dropout
+takes the rank's slice of the global batch's masks, so N ranks compute what
+one process computes on the global batch. The loss terms and the PSNR are
+reduced over the ranks; rank 0 writes the checkpoints and the monitoring,
+every rank resumes from the checkpoints.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from musicfpaugment_torch.augment.pipeline import AugmentFP
 from musicfpaugment_torch.core import prng
 from musicfpaugment_torch.core.stft import magnitude_spectrogram
 from musicfpaugment_torch.device import DeviceLike, cudnn_tf32, resolve_device
+from musicfpaugment_torch.models import Demucs, UNet, flax_init, rescale_params
 from musicfpaugment_torch.parallel.augment_sharded import shard_draws
 from musicfpaugment_torch.train.losses import l1_loss, multi_resolution_stft_loss, psnr
 from musicfpaugment_torch.train.utils import get_rank, get_world_size, is_dist_avail_and_initialized
@@ -143,10 +149,12 @@ class Trainer:
 
     ``train_iter`` / ``val_iter`` yield clean (B, T) batches (numpy or
     tensors), or (clean, augmented) tuples; with an ``augmenter`` the
-    augmented half is always made in the step. ``model`` carries its own
-    weights (PyTorch builds them at construction) and the trainer takes them
-    as given: a fresh :class:`Demucs` gets ``rescale_params(model, 0.1)``
-    from its caller, as the CLI does (the JAX trainer applies it at init).
+    augmented half is always made in the step. A :class:`UNet` or
+    :class:`Demucs` ``model`` is initialised here as the JAX trainer
+    initialises its model, whatever weights it held: Flax's initialisers
+    under ``PRNGKey(0)`` and, for a Demucs, ``rescale_params(model, 0.1)``
+    (a resume then loads the checkpoint); any other module keeps its
+    weights. To train from given weights, load them after construction.
     ``example_batch`` is only checked to be a (B, T) batch whose size the
     number of ranks divides. With ``monitoring`` each epoch's scalars go to
     ``writer`` and every 10th epoch a validation triplet (clean, augmented,
@@ -185,6 +193,10 @@ class Trainer:
             raise ValueError("example_batch must be clean waveforms (B, T)")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
+        if isinstance(model, (UNet, Demucs)):
+            flax_init(model)
+            if isinstance(model, Demucs):
+                rescale_params(model, reference=0.1)
         self.world, self.rank = get_world_size(), get_rank()
         if example_batch is not None:
             self._bounds(len(example_batch))
@@ -215,8 +227,7 @@ class Trainer:
         self.cache_validation_set = cache_validation_set
         self._val_cache: Optional[list] = None
         # the stream of step keys (drawn on the host, whatever the device);
-        # each step's key splits into the augmentation's key and dropout's,
-        # which goes unused: dropout draws from torch's own generator
+        # each step's key splits into the augmentation's key and dropout's
         self._key = prng.key(seed)
         self.step = 0
         self.optimizer = torch.optim.Adam(
@@ -259,14 +270,20 @@ class Trainer:
         b = batch // self.world
         return self.rank * b, (self.rank + 1) * b
 
-    def _loss_terms(self, clean: torch.Tensor, aug: torch.Tensor, model: Optional[nn.Module] = None):
+    def _loss_terms(self, clean: torch.Tensor, aug: torch.Tensor, model: Optional[nn.Module] = None,
+                    dropout: Optional[Tuple[torch.Tensor, int]] = None):
         """(loss, terms, prediction, target) in the model's current mode;
-        the model's input in its parameters' dtype."""
+        the model's input in its parameters' dtype. ``dropout``: the step's
+        dropout key and this rank's first example in the global batch, for
+        a training forward of the UNet."""
         model = model if model is not None else self.model
         dtype = next(self.model.parameters()).dtype
         if self.input_type == "spec":
             clean_in = spectrogram_batch(clean)
-            pred = model(spectrogram_batch(aug).to(dtype))
+            kw = {}
+            if dropout is not None and isinstance(self.model, UNet):
+                kw = {"dropout_key": dropout[0], "batch_offset": dropout[1]}
+            pred = model(spectrogram_batch(aug).to(dtype), **kw)
             loss = l1_loss(pred, clean_in)
             return loss, {"loss": loss}, pred, clean_in
         pred = model(aug.to(dtype))
@@ -287,11 +304,11 @@ class Trainer:
         k_aug, _ = prng.split(key).unbind(-2)
         return self.augmenter.draw(batch, num_samples, k_aug)
 
-    def _make_batch(self, clean, aug, draws=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _make_batch(self, clean, aug, draws=None, key=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """(clean, augmented) of this rank's slice of a global batch, on the
         device. The augmented half is made there from ``draws`` of the whole
-        batch (default: under the next step key) when there is an
-        augmenter, else taken from the loader."""
+        batch (default: under the step key ``key``, else the next one) when
+        there is an augmenter, else taken from the loader."""
         clean = torch.as_tensor(clean)
         lo, hi = self._bounds(clean.shape[0])
         local = clean[lo:hi].to(self.device)
@@ -300,7 +317,8 @@ class Trainer:
                 raise ValueError("a clean-only batch needs an augmenter")
             return local, torch.as_tensor(aug)[lo:hi].to(self.device)
         if draws is None:
-            draws = self._augment_draws(self._next_key(), clean.shape[0], clean.shape[-1])
+            key = self._next_key() if key is None else key
+            draws = self._augment_draws(key, clean.shape[0], clean.shape[-1])
         return local, self.augmenter.apply(local, shard_draws(draws, lo, hi))
 
     def _get_batch(self, iterator) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -317,14 +335,19 @@ class Trainer:
     def train_step(self, clean: torch.Tensor, aug: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """One optimisation step on one global batch (this rank takes its
         slice); returns this rank's loss terms (device scalars). The
-        gradients stay in the parameters' ``.grad``."""
-        clean, aug = self._make_batch(clean, aug)
+        gradients stay in the parameters' ``.grad``. Every step takes the
+        next step key, as the JAX trainer's does: its first half augments,
+        its second drops."""
+        key = self._next_key()
+        lo = self._bounds(torch.as_tensor(clean).shape[0])[0]
+        clean, aug = self._make_batch(clean, aug, key=key)
+        k_drop = prng.split(key).unbind(-2)[1]
         for group in self.optimizer.param_groups:
             group["lr"] = self.base_lr * self.scheduler.scale
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         with cudnn_tf32(False):
-            loss, terms, _, _ = self._loss_terms(clean, aug, self._train_model)
+            loss, terms, _, _ = self._loss_terms(clean, aug, self._train_model, (k_drop, lo))
             loss.backward()
         self.optimizer.step()
         self.step += 1
@@ -370,7 +393,8 @@ class Trainer:
         """(clean, augmented) of this rank's slice for each validation
         step."""
         if not self.cache_validation_set:
-            return (self._make_batch(*self._get_batch(self.val_iter)) for _ in range(self.val_steps))
+            return (self._make_batch(*self._get_batch(self.val_iter), key=self._next_key())
+                    for _ in range(self.val_steps))
         if self._val_cache is None:
             self._val_cache = []
             for i in range(self.val_steps):

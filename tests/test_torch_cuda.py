@@ -714,3 +714,50 @@ def test_prng_and_corpus_on_the_card_equal_the_cpu(cuda_device):
     a = synth_tracks_device(1234, range(4), 30 * 8000, device=cuda_device).cpu()
     b = synth_tracks_device(1234, range(4), 30 * 8000, device="cpu")
     assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_kernel_matches_plain_forward_and_backward(cuda_device, dtype):
+    """The fused threefry dropout against its plain version on the same card
+    tensors, at odd shapes and a rank's batch offset: every element of the
+    output and of the gradient bit for bit; one launch each way."""
+    from musicfpaugment_torch.models import dropout as tdrop
+
+    key = prng.flax_fold(prng.key(5), "Dropout_3", 1)
+    for shape, offset in (((3, 5, 7, 11), 0), ((2, 64, 17, 3), 6), ((1, 1, 1, 300), 1)):
+        x = torch.randn(shape, device=cuda_device).to(dtype)
+        g = torch.randn(shape, device=cuda_device).to(dtype)
+        xk, xp = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+        tdrop.reset_launch_counts()
+        yk = tdrop.dropout(xk, key, 0.05, offset)
+        yp = tdrop.dropout_plain(xp, key, 0.05, offset)
+        yk.backward(g)
+        yp.backward(g)
+        assert tdrop.LAUNCHES["dropout_threefry"] == 2
+        assert torch.equal(yk, yp) and torch.equal(xk.grad, xp.grad)
+        assert bool((yk == 0).any()) and bool((yk != 0).any())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tdrop.dropout(torch.ones(1, 1, 1, 4, dtype=torch.float64, device=cuda_device), key, 0.05)
+
+
+@pytest.mark.cuda
+def test_flax_init_on_card_equals_cpu(cuda_device):
+    """``flax_init`` draws on the model's device: the UNet's weights on the
+    card equal the CPU's (``erf_inv``'s ``log1p`` is taken in float64 on
+    both) to an ulp; a rate-0.05 training forward takes the kernel."""
+    from musicfpaugment_torch.models import dropout as tdrop
+    from musicfpaugment_torch.models import flax_init
+
+    card = flax_init(UNet(1, 1, rate=0.05, base=8).to(cuda_device))
+    cpu = flax_init(UNet(1, 1, rate=0.05, base=8))
+    for k, want in cpu.state_dict().items():
+        got = card.state_dict()[k].cpu()
+        if want.is_floating_point():
+            ulp = torch.from_numpy(np.spacing(want.abs().numpy()))
+            assert bool(((got - want).abs() <= ulp).all()), k
+        else:
+            assert torch.equal(got, want), k
+    tdrop.reset_launch_counts()
+    card.train()(torch.rand(2, 33, 20, device=cuda_device), dropout_key=prng.key(1))
+    assert tdrop.LAUNCHES["dropout_threefry"] == 5

@@ -2,10 +2,12 @@
 1 s clips).
 
 Both trainers start from one state: the JAX trainer's ``params`` and
-``batch_stats`` go through ``convert.unet_state_dict_from_flax``, both see
-the same (clean, augmented) batches (``augmenter=None``, iterators of
-tuples), and the UNet has ``rate=0`` (Flax's and torch's dropout masks
-cannot match). Tolerances:
+``batch_stats`` go through ``convert.unet_state_dict_from_flax`` and are
+loaded into the port trainer's model after its construction (the port
+trainer draws Flax's initial weights itself, equal to JAX's within 1e-7:
+tests/test_torch_flax_init.py), both see the same (clean, augmented)
+batches (``augmenter=None``, iterators of tuples), and the UNet has
+``rate=0`` here (tests/test_torch_dropout.py trains at 0.05). Tolerances:
 
 - loss, validation terms and the scheduler's best within 1e-5 relative;
 - running statistics after the step within 1e-5 of the largest value;
@@ -41,6 +43,7 @@ from musicfpaugment_torch.augment import AugmentFP, synthetic_banks
 from musicfpaugment_torch.data.synthetic import synthetic_clean_batches
 from musicfpaugment_torch.models import Demucs, UNet, rescale_params
 from musicfpaugment_torch.train import train as ttrain
+from musicfpaugment_torch.train import trainer as ptrainer
 from musicfpaugment_torch.train.trainer import EarlyStopping, ReduceLROnPlateau, Trainer
 from musicfpaugment_tpu.models import Demucs as JDemucs
 from musicfpaugment_tpu.models import UNet as JUNet
@@ -81,11 +84,16 @@ def _jax_trainer(model, input_type, tmp_path, train, val):
     )
 
 
-def _port_trainer(model, input_type, tmp_path, train, val, name="port", **kw):
-    return Trainer(
+def _port_trainer(model, input_type, tmp_path, train, val, name="port", state=None, **kw):
+    """The port's trainer; ``state`` (a state_dict) is loaded into its model
+    after the trainer has initialised it."""
+    trainer = Trainer(
         model, _cycle(train), 1, _cycle(val), len(val), LR, 3, str(tmp_path / name),
         input_type=input_type, augmenter=None, device="cpu", **kw,
     )
+    if state is not None:
+        trainer.model.load_state_dict(state)
+    return trainer
 
 
 def _grad_errors(got, want):
@@ -105,9 +113,8 @@ def spec_run(tmp_path_factory):
     jt = _jax_trainer(JUNet(1, 1, rate=0.0, base=8), "spec", tmp, train, val)
     params0 = jax.tree_util.tree_map(np.asarray, jt.state.params)
     stats0 = jax.tree_util.tree_map(np.asarray, jt.state.batch_stats)
-    model = UNet(1, 1, rate=0.0, base=8)
-    model.load_state_dict(convert.unet_state_dict_from_flax(params0, stats0))
-    tt = _port_trainer(model, "spec", tmp, train, val)
+    tt = _port_trainer(UNet(1, 1, rate=0.0, base=8), "spec", tmp, train, val,
+                       state=convert.unet_state_dict_from_flax(params0, stats0))
 
     with jax.enable_x64(True):
         p64, s64 = (jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), t)
@@ -127,10 +134,9 @@ def spec_run(tmp_path_factory):
     after = convert.unet_state_dict_from_flax(
         jax.tree_util.tree_map(np.asarray, jt.state.params),
         jax.tree_util.tree_map(np.asarray, jt.state.batch_stats))
-    on_jax_weights = UNet(1, 1, rate=0.0, base=8)
-    on_jax_weights.load_state_dict(after)
     out["val1"] = (jt.validation_epoch(),
-                   _port_trainer(on_jax_weights, "spec", tmp, train, val, "port1").validation_epoch())
+                   _port_trainer(UNet(1, 1, rate=0.0, base=8), "spec", tmp, train, val, "port1",
+                                 state=after).validation_epoch())
     # the converter rounds the float64 leaves to float32: ~6e-8 relative
     out["grads"] = ({k: p.grad for k, p in tt.model.named_parameters()},
                     _params_only(convert.unet_state_dict_from_flax(grads, stats0)))
@@ -241,7 +247,8 @@ def audio_run(tmp_path_factory):
         mp.setenv("MFPA_STFT_MATMUL", "0")
         jt = _jax_trainer(JDemucs(hidden=8, depth=3), "audio", tmp, train, val)
         params0 = jax.tree_util.tree_map(np.asarray, jt.state.params)
-        tt = _port_trainer(port_demucs(params0), "audio", tmp, train, val)
+        tt = _port_trainer(port_demucs(params0), "audio", tmp, train, val,
+                           state=convert.demucs_state_dict_from_flax(params0))
         # Flax starts an LSTM's carry in its cell's float32 param_dtype, which
         # a float64 scan refuses: start it in float64 (the same function)
         init_carry = fnn.OptimizedLSTMCell.initialize_carry
@@ -259,7 +266,8 @@ def audio_run(tmp_path_factory):
             grads, stepped = to_np(grads), to_np(stepped)
         mp.setattr(fnn.OptimizedLSTMCell, "initialize_carry", init_carry)
         out = {"terms": (jt.train_epoch(1), tt.train_epoch(1))}
-    tt64 = _port_trainer(port_demucs(params0).double(), "audio", tmp, train, val, "port64")
+    tt64 = _port_trainer(port_demucs(params0).double(), "audio", tmp, train, val, "port64",
+                         state=convert.demucs_state_dict_from_flax(params0))
     before = {k: v.clone() for k, v in tt64.model.state_dict().items()}
     tt64.train_step(*(torch.from_numpy(a).double() for a in train[0]))
     p0 = _port_layout_float64(params0)
@@ -475,13 +483,13 @@ def test_train_cli_runs_two_epochs_and_writes_jax_meta(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bfloat16"])
 def test_train_cli_runs_demucs_with_its_rate_rescale_and_checkpoints(tmp_path, monkeypatch, bf16):
-    """``--model demucs``: a rescaled fresh Demucs (made small here) trained
-    on the "audio" path at lr 5e-4 for two epochs, checkpoints named as the
-    JAX CLI names them."""
+    """``--model demucs``: a fresh Demucs (made small here), given Flax's
+    weights and rescaled once by the trainer, trained on the "audio" path at
+    lr 5e-4 for two epochs, checkpoints named as the JAX CLI names them."""
     monkeypatch.setattr(ttrain, "CHECKPOINT_ROOT", str(tmp_path))
     monkeypatch.setattr(ttrain, "Demucs", functools.partial(Demucs, hidden=4, depth=3))
     rescaled = []
-    monkeypatch.setattr(ttrain, "rescale_params",
+    monkeypatch.setattr(ptrainer, "rescale_params",
                         lambda m, reference: rescaled.append((m, reference)) or rescale_params(m, reference))
     argv = ["--model", "demucs", "--device", "cpu", "--epochs", "3", "--batch-size", "2",
             "--train-steps", "1", "--val-steps", "1", "--save"]

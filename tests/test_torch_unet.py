@@ -16,6 +16,7 @@ import torch
 from flax import linen as fnn
 
 from musicfpaugment_torch import convert
+from musicfpaugment_torch.core import prng
 from musicfpaugment_torch.models import UNet
 from musicfpaugment_tpu.models import UNet as JUNet
 
@@ -110,9 +111,10 @@ def test_training_forward_and_running_statistics_match_flax(pair):
 def test_dropout_sits_after_the_four_downs_and_the_first_up():
     tm = UNet(1, 1, rate=0.5, base=4).train()
     seen = []
-    tm.dropout.register_forward_hook(lambda mod, args, out: seen.append(tuple(args[0].shape[1:])))
-    tm(torch.zeros(2, 32, 32))
-    assert seen == [(8, 16, 16), (16, 8, 8), (32, 4, 4), (64, 2, 2), (32, 4, 4)]
+    for m in tm.dropouts:
+        m.register_forward_hook(lambda mod, args, out: seen.append((mod.index, tuple(args[0].shape[1:]))))
+    tm(torch.zeros(2, 32, 32), dropout_key=prng.key(1))
+    assert seen == list(enumerate([(8, 16, 16), (16, 8, 8), (32, 4, 4), (64, 2, 2), (32, 4, 4)]))
     tm.eval()
     x = torch.rand(1, 32, 32)
     with torch.no_grad():

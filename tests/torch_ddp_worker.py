@@ -33,14 +33,15 @@ def batches():
 
 
 def step(ckpt: str, global_bn: bool = True) -> dict:
-    """One training step of a float64 ``UNet(base=8, rate=0)`` on the global
-    batch (this process's share of it under a process group), augmented on
-    the CPU, then one validation epoch: the loss terms, the gradients, the
+    """One training step of a float64 ``UNet(base=8, rate=0.05)`` on the
+    global batch (this process's share of it under a process group: its
+    slice of the global dropout masks too), augmented on the CPU, then one
+    validation epoch: the loss terms, the gradients, the
     parameters and running statistics after the step, the validation
     losses and PSNR."""
     torch.set_num_threads(1)
     torch.manual_seed(0)
-    model = UNet(1, 1, rate=0.0, base=8).double()
+    model = UNet(1, 1, rate=0.05, base=8).double()
     nb, ib = synthetic_banks(sample_rate=SR, noise_row_length=SR, device="cpu")
     fp = AugmentFP(nb, SR, impulse_response_dir=ib, device="cpu")
     train, val = batches()

@@ -8,6 +8,8 @@ deterministic ``apply`` functions. The JAX side of a comparison is then the
 transform or the chain called with the same key.
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -173,6 +175,26 @@ def flax_unet_variables(model, sample_shape, seed=0):
         return out
 
     return redraw(variables["params"]), redraw(variables["batch_stats"])
+
+
+@contextlib.contextmanager
+def flax_float32_dropout_masks():
+    """Inside a float64 run (``jax.enable_x64``), Flax's dropout masks as
+    JAX draws them with x64 off: ``jax.random.bernoulli(key, p, shape)``
+    takes its ``p`` as float64 there and draws float64 uniforms, other
+    masks; in this block it draws the float32 uniform (the same 32 bits per
+    element) and compares with float32 ``p``. Only this process's
+    ``jax.random`` attribute is swapped, and restored after."""
+    original = jax.random.bernoulli
+
+    def bernoulli(key, p=0.5, shape=None, mode="low"):
+        return jax.random.uniform(key, shape, jnp.float32) < jnp.float32(p)
+
+    jax.random.bernoulli = bernoulli
+    try:
+        yield
+    finally:
+        jax.random.bernoulli = original
 
 
 def port_unet(params, batch_stats, **kwargs):
