@@ -25,6 +25,7 @@ from musicfpaugment_torch.afp.audfprint.peaks import find_peaks_batch, find_peak
 from musicfpaugment_torch.augment.constants import WAVEFORM_SAMPLING_RATE
 from musicfpaugment_torch.data.audio_io import read_wav, resample
 from musicfpaugment_torch.device import DeviceLike, resolve_device
+from musicfpaugment_torch.utils.profiling import annotate
 
 Waveform = Union[np.ndarray, torch.Tensor]
 
@@ -362,13 +363,15 @@ class AudfprintPeaks:
     ) -> int:
         """Peaks and hashes for the whole batch on the device, then one
         vectorized host store per track. Returns the number of hashes."""
-        all_hashes = self.hashes_batch(
-            waveforms, shifts=shifts, valid_samples=valid_samples
-        )
+        with annotate("ingest.hash"):
+            all_hashes = self.hashes_batch(
+                waveforms, shifts=shifts, valid_samples=valid_samples
+            )
         total = 0
-        for name, hashes in zip(names, all_hashes):
-            hashtable.store(name, hashes)
-            total += len(hashes)
+        with annotate("ingest.store"):
+            for name, hashes in zip(names, all_hashes):
+                hashtable.store(name, hashes)
+                total += len(hashes)
         return total
 
 

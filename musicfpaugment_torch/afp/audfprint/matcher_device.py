@@ -29,6 +29,7 @@ from musicfpaugment_torch.afp.audfprint.hash_table import HashTable
 from musicfpaugment_torch.afp.audfprint.peaks import find_peaks_shifts
 from musicfpaugment_torch.device import DeviceLike, resolve_device
 from musicfpaugment_torch.parallel.mesh import canonical_device, distinct, make_mesh, shard_bounds
+from musicfpaugment_torch.utils.profiling import annotate, count
 
 
 def _run_length(sorted_vals: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -144,6 +145,7 @@ def _match_impl(
     k2 = k2[:, :S]
     clen = torch.gather(cell_len, 1, order2[:, :S])
     cell_overflow = int((keep_cell.sum(dim=1) > S).sum())
+    count("matcher.readbacks")
     present = k2 < big32
     crank = torch.where(present, k2 // T2, C)
     cdt = torch.where(present, k2 - (k2 // T2) * T2, T)
@@ -289,22 +291,26 @@ class DeviceMatcher:
             return self.max_query_frames
         return -(-needed // 128) * 128
 
-    def _verdicts(self, best_id, best_count, cell_overflow: int, B: int):
-        if cell_overflow:
-            warnings.warn(
-                f"{cell_overflow}/{B} queries exceeded the "
-                f"{self.cell_budget}-candidate-cell budget (lowest-ranked "
-                "cells dropped); raise cell_budget if this is expected",
-                stacklevel=3,
-            )
-        best_id = best_id.cpu().numpy()
-        best_count = best_count.cpu().numpy()
-        return [
-            ("NOMATCH", "", 0)
-            if best_id[i] < 0
-            else ("MATCH", self.ht.names[int(best_id[i])], int(best_count[i]))
-            for i in range(B)
-        ]
+    def _verdicts(self, best_ids, best_counts, cell_overflow: int, B: int):
+        """The verdicts of a batch from each device's ``best_id`` and
+        ``best_count`` (lists, in batch order), read back to the host."""
+        with annotate("matcher.verdicts"):
+            if cell_overflow:
+                warnings.warn(
+                    f"{cell_overflow}/{B} queries exceeded the "
+                    f"{self.cell_budget}-candidate-cell budget (lowest-ranked "
+                    "cells dropped); raise cell_budget if this is expected",
+                    stacklevel=3,
+                )
+            best_id = torch.cat([i.cpu() for i in best_ids]).numpy()
+            best_count = torch.cat([c.cpu() for c in best_counts]).numpy()
+            count("matcher.readbacks", 2 * len(best_ids))
+            return [
+                ("NOMATCH", "", 0)
+                if best_id[i] < 0
+                else ("MATCH", self.ht.names[int(best_id[i])], int(best_count[i]))
+                for i in range(B)
+            ]
 
     def match_waveforms(
         self,
@@ -333,55 +339,58 @@ class DeviceMatcher:
         ``analyzer.pad_waveform_batch``. ``denoiser`` is a spectrogram
         denoiser (``convert.unet_denoiser``), called once per shift on that
         shift's normalised magnitudes."""
-        waveforms = torch.as_tensor(waveforms, dtype=torch.float32)
-        B, T = waveforms.shape
-        n_frames = 1 + T // n_hop
-        mqf = self._effective_mqf(n_frames - 1)
-        n_shifts = max(1, shifts)
-        budget = min(
-            max_query_hashes,
-            1 << int(np.ceil(np.log2(max(3 * n_frames * n_shifts, 64)))),
-        )
-        peak_kw = dict(density=density, n_fft=n_fft, n_hop=n_hop, f_sd=f_sd,
-                       maxpksperframe=maxpksperframe, denoiser=denoiser)
-        vs = None if valid_samples is None else torch.as_tensor(valid_samples, dtype=torch.int32)
-        shards = (
-            [((0, B), self.device)] if self.mesh is None
-            else list(zip(shard_bounds(B, self.mesh), self.mesh))
-        )
-        staged = [
-            self._compact_hashes(
-                waveforms[lo:hi].to(dev), None if vs is None else vs[lo:hi].to(dev),
-                n_shifts, budget, peak_kw,
+        with annotate("matcher.match_waveforms"):
+            waveforms = torch.as_tensor(waveforms, dtype=torch.float32)
+            B, T = waveforms.shape
+            n_frames = 1 + T // n_hop
+            mqf = self._effective_mqf(n_frames - 1)
+            n_shifts = max(1, shifts)
+            budget = min(
+                max_query_hashes,
+                1 << int(np.ceil(np.log2(max(3 * n_frames * n_shifts, 64)))),
             )
-            for (lo, hi), dev in shards
-        ]
-        # one scalar readback a device picks the batch's lane tier
-        n = staged[0][0].shape[-1]
-        n_used = max(int(torch.clamp(nv, max=n).max()) for _, _, nv in staged)
-        n_overflow = sum(int((nv > n).sum()) for _, _, nv in staged)
-        h_tier = min(n, 1 << int(np.ceil(np.log2(max(n_used, 64)))))
-        ids, counts, cell_overflow = [], [], 0
-        kw = self._match_kwargs(mqf)
-        for (_, dev), (t, h, nv) in zip(shards, staged):
-            vq = torch.arange(h_tier, device=dev) < torch.clamp(nv, max=h_tier)[:, None]
-            table = self._replicas[canonical_device(dev)]
-            best_id, best_count, _, overflow = _match_impl(
-                *table, t[:, :h_tier], h[:, :h_tier], vq, **kw
+            peak_kw = dict(density=density, n_fft=n_fft, n_hop=n_hop, f_sd=f_sd,
+                           maxpksperframe=maxpksperframe, denoiser=denoiser)
+            vs = None if valid_samples is None else torch.as_tensor(valid_samples, dtype=torch.int32)
+            shards = (
+                [((0, B), self.device)] if self.mesh is None
+                else list(zip(shard_bounds(B, self.mesh), self.mesh))
             )
-            ids.append(best_id)
-            counts.append(best_count)
-            cell_overflow += overflow
-        if n_overflow:
-            warnings.warn(
-                f"{n_overflow}/{B} queries exceeded the {budget}-hash "
-                "budget and were truncated (earliest hashes kept); pass a "
-                "larger max_query_hashes if this is expected",
-                stacklevel=2,
-            )
-        best_id = torch.cat([i.cpu() for i in ids])
-        best_count = torch.cat([c.cpu() for c in counts])
-        return self._verdicts(best_id, best_count, cell_overflow, B)
+            staged = [
+                self._compact_hashes(
+                    waveforms[lo:hi].to(dev), None if vs is None else vs[lo:hi].to(dev),
+                    n_shifts, budget, peak_kw,
+                )
+                for (lo, hi), dev in shards
+            ]
+            # one scalar readback a device picks the batch's lane tier
+            with annotate("matcher.tier"):
+                n = staged[0][0].shape[-1]
+                n_used = max(int(torch.clamp(nv, max=n).max()) for _, _, nv in staged)
+                n_overflow = sum(int((nv > n).sum()) for _, _, nv in staged)
+                count("matcher.readbacks", 2 * len(staged))
+            h_tier = min(n, 1 << int(np.ceil(np.log2(max(n_used, 64)))))
+            count("matcher.lane_tier", h_tier)
+            ids, counts, cell_overflow = [], [], 0
+            kw = self._match_kwargs(mqf)
+            for (_, dev), (t, h, nv) in zip(shards, staged):
+                vq = torch.arange(h_tier, device=dev) < torch.clamp(nv, max=h_tier)[:, None]
+                table = self._replicas[canonical_device(dev)]
+                with annotate("matcher.match"):
+                    best_id, best_count, _, overflow = _match_impl(
+                        *table, t[:, :h_tier], h[:, :h_tier], vq, **kw
+                    )
+                ids.append(best_id)
+                counts.append(best_count)
+                cell_overflow += overflow
+            if n_overflow:
+                warnings.warn(
+                    f"{n_overflow}/{B} queries exceeded the {budget}-hash "
+                    "budget and were truncated (earliest hashes kept); pass a "
+                    "larger max_query_hashes if this is expected",
+                    stacklevel=2,
+                )
+            return self._verdicts(ids, counts, cell_overflow, B)
 
     @staticmethod
     def _compact_hashes(waveforms, vsamp, n_shifts: int, budget: int, peak_kw: dict):
@@ -389,20 +398,22 @@ class DeviceMatcher:
         landmark hashes, the cross-shift dedup and the compaction to
         ``budget`` lanes, on the waveforms' device: (times, hashes, number
         of valid hashes of each query)."""
-        masks_by_shift = find_peaks_shifts(waveforms, n_shifts, valid_samples=vsamp, **peak_kw)
-        th_parts, valid_parts = [], []
-        for masks in masks_by_shift:
-            C = int(masks.shape[-1])
-            max_peaks = -(-peak_kw["maxpksperframe"] * C // 128) * 128
-            th, v = lm.hashes_from_masks_batched(
-                masks, max_peaks=max_peaks, max_hashes=max_peaks * lm.MAXPAIRSPERPEAK
-            )
-            th_parts.append(th)
-            valid_parts.append(v)
-        th = torch.cat(th_parts, dim=1)
-        valid = torch.cat(valid_parts, dim=1)
-        t, h, v = lm.sort_dedup_hashes(th[..., 0], th[..., 1], valid)
-        return lm.compact_valid_first(t, h, v, out_len=min(budget, t.shape[-1]))
+        with annotate("matcher.peaks"):
+            masks_by_shift = find_peaks_shifts(waveforms, n_shifts, valid_samples=vsamp, **peak_kw)
+        with annotate("matcher.hashes"):
+            th_parts, valid_parts = [], []
+            for masks in masks_by_shift:
+                C = int(masks.shape[-1])
+                max_peaks = -(-peak_kw["maxpksperframe"] * C // 128) * 128
+                th, v = lm.hashes_from_masks_batched(
+                    masks, max_peaks=max_peaks, max_hashes=max_peaks * lm.MAXPAIRSPERPEAK
+                )
+                th_parts.append(th)
+                valid_parts.append(v)
+            th = torch.cat(th_parts, dim=1)
+            valid = torch.cat(valid_parts, dim=1)
+            t, h, v = lm.sort_dedup_hashes(th[..., 0], th[..., 1], valid)
+            return lm.compact_valid_first(t, h, v, out_len=min(budget, t.shape[-1]))
 
     def match_hashes_batch(
         self, hashes_list: Sequence[np.ndarray]
@@ -424,11 +435,12 @@ class DeviceMatcher:
                 qt[i, :n] = arr[:, 0]
                 qh[i, :n] = arr[:, 1] & ((1 << self.ht.hashbits) - 1)
                 qv[i, :n] = True
-        best_id, best_count, _, cell_overflow = _match_impl(
-            self._table, self._counts, self._hpit,
-            torch.from_numpy(qt).to(self.device),
-            torch.from_numpy(qh).to(self.device),
-            torch.from_numpy(qv).to(self.device),
-            **self._match_kwargs(self._effective_mqf(int(qt.max(initial=0)))),
-        )
-        return self._verdicts(best_id, best_count, cell_overflow, B)
+        with annotate("matcher.match"):
+            best_id, best_count, _, cell_overflow = _match_impl(
+                self._table, self._counts, self._hpit,
+                torch.from_numpy(qt).to(self.device),
+                torch.from_numpy(qh).to(self.device),
+                torch.from_numpy(qv).to(self.device),
+                **self._match_kwargs(self._effective_mqf(int(qt.max(initial=0)))),
+            )
+        return self._verdicts([best_id], [best_count], cell_overflow, B)

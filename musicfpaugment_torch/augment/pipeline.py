@@ -51,6 +51,7 @@ from musicfpaugment_torch.augment.transforms import (
 )
 from musicfpaugment_torch.core import prng
 from musicfpaugment_torch.device import DeviceLike, resolve_device
+from musicfpaugment_torch.utils.profiling import annotate
 
 Waveforms = Union[torch.Tensor, np.ndarray]
 
@@ -207,12 +208,13 @@ class AugmentFP:
         ``key`` (default: the augmenter's own stream, which advances): one
         key per stage split from it, as the JAX package's chain does. A
         (batch, 2) batch of keys draws each example under its own."""
-        if key is None:
-            key = self._next_key()
-        return self.pipeline.draw(
-            key, batch, num_samples, self.sample_rate,
-            noise_bank=self.noise_bank, ir_bank=self.ir_bank,
-        )
+        with annotate("augment.draw"):
+            if key is None:
+                key = self._next_key()
+            return self.pipeline.draw(
+                key, batch, num_samples, self.sample_rate,
+                noise_bank=self.noise_bank, ir_bank=self.ir_bank,
+            )
 
     def draw_indexed(self, indices: Sequence[int], num_samples: int, base_key) -> List[Draws]:
         """Example ``i``'s draws under ``fold_in(base_key, indices[i])``, as
@@ -226,36 +228,37 @@ class AugmentFP:
     def apply(self, waveforms: Waveforms, draws: Sequence[Draws]) -> torch.Tensor:
         """The deterministic chain on (batch, channels, time) or (batch,
         time) waveforms with the given per-stage draws."""
-        samples = torch.as_tensor(waveforms, dtype=torch.float32, device=self.device)
-        # a size-1 channel axis is stripped for the chain and restored after
-        mono = samples.ndim == 3 and samples.shape[1] == 1
-        if mono:
-            samples = samples[:, 0, :]
-        pipeline = self.pipeline
-        banks = {"noise_bank": self.noise_bank, "ir_bank": self.ir_bank}
-        if self.fuse_lti and samples.ndim == 2:
-            tfms = pipeline.transforms
-            out = fused_highpass_ir(samples, draws[0], draws[1], tfms[0], self.ir_bank)
-            i = 2
-            while i < len(tfms):
-                # trailing LPF2 -> HPF3 pair: one fused conv pass (HPF is a
-                # LowPassFilter subclass, so order the checks)
-                if (
-                    i + 1 < len(tfms)
-                    and isinstance(tfms[i], LowPassFilter)
-                    and not isinstance(tfms[i], HighPassFilter)
-                    and isinstance(tfms[i + 1], HighPassFilter)
-                ):
-                    out = fused_lowpass_highpass(
-                        out, draws[i], draws[i + 1], tfms[i], tfms[i + 1]
-                    )
-                    i += 2
-                    continue
-                out = tfms[i].apply(out, draws[i], self.sample_rate, **banks)
-                i += 1
-        else:
-            out = pipeline.apply(samples, draws, self.sample_rate, **banks)
-        return out[:, None, :] if mono else out
+        with annotate("augment.apply"):
+            samples = torch.as_tensor(waveforms, dtype=torch.float32, device=self.device)
+            # a size-1 channel axis is stripped for the chain and restored after
+            mono = samples.ndim == 3 and samples.shape[1] == 1
+            if mono:
+                samples = samples[:, 0, :]
+            pipeline = self.pipeline
+            banks = {"noise_bank": self.noise_bank, "ir_bank": self.ir_bank}
+            if self.fuse_lti and samples.ndim == 2:
+                tfms = pipeline.transforms
+                out = fused_highpass_ir(samples, draws[0], draws[1], tfms[0], self.ir_bank)
+                i = 2
+                while i < len(tfms):
+                    # trailing LPF2 -> HPF3 pair: one fused conv pass (HPF is a
+                    # LowPassFilter subclass, so order the checks)
+                    if (
+                        i + 1 < len(tfms)
+                        and isinstance(tfms[i], LowPassFilter)
+                        and not isinstance(tfms[i], HighPassFilter)
+                        and isinstance(tfms[i + 1], HighPassFilter)
+                    ):
+                        out = fused_lowpass_highpass(
+                            out, draws[i], draws[i + 1], tfms[i], tfms[i + 1]
+                        )
+                        i += 2
+                        continue
+                    out = tfms[i].apply(out, draws[i], self.sample_rate, **banks)
+                    i += 1
+            else:
+                out = pipeline.apply(samples, draws, self.sample_rate, **banks)
+            return out[:, None, :] if mono else out
 
     # ------------------------------------------------------------ API
 

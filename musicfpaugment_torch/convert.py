@@ -27,6 +27,7 @@ from musicfpaugment_torch.augment.banks import IRBank, NoiseBank
 from musicfpaugment_torch.device import DeviceLike, resolve_device
 from musicfpaugment_torch.models.demucs import Demucs
 from musicfpaugment_torch.models.unet import UNet
+from musicfpaugment_torch.utils.profiling import annotate
 
 
 def hash_table_from_arrays(
@@ -226,7 +227,7 @@ def unet_denoiser(model: UNet) -> Callable[[torch.Tensor], torch.Tensor]:
     model.eval()
 
     def hook(sgram: torch.Tensor) -> torch.Tensor:
-        with torch.inference_mode():
+        with annotate("denoiser.forward"), torch.inference_mode():
             return model(sgram).to(torch.float32)
 
     return hook
@@ -395,7 +396,7 @@ def demucs_denoiser(model: Demucs) -> Callable[[torch.Tensor], torch.Tensor]:
     model.lstm.lstm.flatten_parameters()
 
     def hook(wave: torch.Tensor) -> torch.Tensor:
-        with torch.inference_mode():
+        with annotate("denoiser.forward"), torch.inference_mode():
             return model(wave).to(torch.float32)
 
     return hook

@@ -46,6 +46,7 @@ from musicfpaugment_torch.testing.parameters import (
     afp_settings,
     queries_paths,
 )
+from musicfpaugment_torch.utils.profiling import annotate
 
 RESULTS_DIR = os.environ.get(
     "MFPA_RESULTS_DIR", os.path.join(os.path.dirname(__file__), "results")
@@ -118,12 +119,13 @@ def create_fp_database(
             good = [(names[i], w) for i, w in ((i, f.result()) for i, f in current)
                     if w is not None and w.shape[0]]
             if good:
-                batch, valid = _stack(
-                    [w for _, w in good], analyzer.n_fft, analyzer.device, bucket
-                )
-                analyzer.ingest_batch(
-                    hash_tab, [n for n, _ in good], batch, shifts=1, valid_samples=valid
-                )
+                with annotate("ingest.batch"):
+                    batch, valid = _stack(
+                        [w for _, w in good], analyzer.n_fft, analyzer.device, bucket
+                    )
+                    analyzer.ingest_batch(
+                        hash_tab, [n for n, _ in good], batch, shifts=1, valid_samples=valid
+                    )
     if dbpath is not None:
         hash_tab.save(dbpath)
     return hash_tab
@@ -223,41 +225,42 @@ def compute_accuracy_batched(
     acc_mix = 0
     n = 0
     for start in range(0, len(files), batch_size):
-        wavs, gts = [], []
-        for i in range(start, min(start + batch_size, len(files))):
-            try:
-                wavs.append(analyzer1._load(files[i]))
-            except (OSError, ValueError) as exc:
-                print("error with ", names[i], exc)
+        with annotate("audfprint.batch"):
+            wavs, gts = [], []
+            for i in range(start, min(start + batch_size, len(files))):
+                try:
+                    wavs.append(analyzer1._load(files[i]))
+                except (OSError, ValueError) as exc:
+                    print("error with ", names[i], exc)
+                    continue
+                gts.append(_ground_truth(names[i]))
+            if not wavs:
                 continue
-            gts.append(_ground_truth(names[i]))
-        if not wavs:
-            continue
-        batch, valid_samples = _stack(wavs, analyzer1.n_fft, device)
-        per_analyzer = []
-        for a in analyzers:
-            if device_matcher is None:
-                hashes_list = a.hashes_batch(batch, shifts=shifts, valid_samples=valid_samples)
+            batch, valid_samples = _stack(wavs, analyzer1.n_fft, device)
+            per_analyzer = []
+            for a in analyzers:
+                if device_matcher is None:
+                    hashes_list = a.hashes_batch(batch, shifts=shifts, valid_samples=valid_samples)
+                    per_analyzer.append(
+                        [matcher.hashes_match_to_msgs(hash_tab, qh) for qh in hashes_list]
+                    )
+                    continue
                 per_analyzer.append(
-                    [matcher.hashes_match_to_msgs(hash_tab, qh) for qh in hashes_list]
+                    device_matcher.match_waveforms(
+                        a._as_batch(batch),  # through the waveform denoiser, if any
+                        shifts=shifts,
+                        density=a.density,
+                        n_fft=a.n_fft,
+                        n_hop=a.n_hop,
+                        f_sd=a.f_sd,
+                        maxpksperframe=a.maxpksperframe,
+                        denoiser=a._spec_hook(),
+                        valid_samples=valid_samples,
+                    )
                 )
-                continue
-            per_analyzer.append(
-                device_matcher.match_waveforms(
-                    a._as_batch(batch),  # through the waveform denoiser, if any
-                    shifts=shifts,
-                    density=a.density,
-                    n_fft=a.n_fft,
-                    n_hop=a.n_hop,
-                    f_sd=a.f_sd,
-                    maxpksperframe=a.maxpksperframe,
-                    denoiser=a._spec_hook(),
-                    valid_samples=valid_samples,
-                )
-            )
-        for qi, gt in enumerate(gts):
-            n += 1
-            acc_mix += _score(gt, [msgs[qi] for msgs in per_analyzer], correct)
+            for qi, gt in enumerate(gts):
+                n += 1
+                acc_mix += _score(gt, [msgs[qi] for msgs in per_analyzer], correct)
     return _accuracies(n, correct, acc_mix, analyzer2 is not None)
 
 

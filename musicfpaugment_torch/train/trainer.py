@@ -55,6 +55,7 @@ from musicfpaugment_torch.models import Demucs, UNet, flax_init, rescale_params
 from musicfpaugment_torch.parallel.augment_sharded import shard_draws
 from musicfpaugment_torch.train.losses import l1_loss, multi_resolution_stft_loss, psnr
 from musicfpaugment_torch.train.utils import get_rank, get_world_size, is_dist_avail_and_initialized
+from musicfpaugment_torch.utils.profiling import annotate
 
 
 def spectrogram_batch(waveforms: torch.Tensor) -> torch.Tensor:
@@ -338,20 +339,24 @@ class Trainer:
         gradients stay in the parameters' ``.grad``. Every step takes the
         next step key, as the JAX trainer's does: its first half augments,
         its second drops."""
-        key = self._next_key()
-        lo = self._bounds(torch.as_tensor(clean).shape[0])[0]
-        clean, aug = self._make_batch(clean, aug, key=key)
-        k_drop = prng.split(key).unbind(-2)[1]
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.base_lr * self.scheduler.scale
-        self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        with cudnn_tf32(False):
-            loss, terms, _, _ = self._loss_terms(clean, aug, self._train_model, (k_drop, lo))
-            loss.backward()
-        self.optimizer.step()
-        self.step += 1
-        return {k: v.detach() for k, v in terms.items()}
+        with annotate("trainer.step"):
+            key = self._next_key()
+            lo = self._bounds(torch.as_tensor(clean).shape[0])[0]
+            clean, aug = self._make_batch(clean, aug, key=key)
+            k_drop = prng.split(key).unbind(-2)[1]
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.base_lr * self.scheduler.scale
+            self.model.train()
+            self.optimizer.zero_grad(set_to_none=True)
+            with cudnn_tf32(False):
+                with annotate("trainer.forward"):
+                    loss, terms, _, _ = self._loss_terms(clean, aug, self._train_model, (k_drop, lo))
+                with annotate("trainer.backward"):
+                    loss.backward()
+            with annotate("trainer.optimizer"):
+                self.optimizer.step()
+            self.step += 1
+            return {k: v.detach() for k, v in terms.items()}
 
     def _rank_mean(self, acc: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Per-rank sums -> their mean over the ranks (equal slices: the

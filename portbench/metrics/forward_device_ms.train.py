@@ -1,0 +1,7 @@
+"""Device ms of ``trainer.forward`` a step (``spans.per_root``)."""
+
+from portbench import spans as S
+
+
+def read(run):
+    return S.per_root(run, "trainer.step", ["trainer.forward"], "device_ms")
