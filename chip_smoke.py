@@ -37,6 +37,13 @@ through the entry points a user calls:
              step with the kernel and with the plain route (ms each, 10
              launches a step); a rate-0.05 ``Trainer`` step on the card and
              on the CPU, each from its own ``flax_init`` (loss within 1e-5);
+3b. hash_stage - the matcher's hashing kernel (``csrc/union_hashes.cu``)
+             against its plain version (``landmarks.union_hashes_plain``, the
+             PyTorch chain the matcher ran before) on the same card masks:
+             the prunes' masks of the 128-query batch in its 4 shifts (251
+             and 250 columns) and of 128 30 s tracks in 4 shifts (938 and
+             937), 0 mismatching rows required; the kernel's ms (CUDA
+             events, 20 calls), its byte bound and the chain's ms;
 4. ingest  - 10,000 synthetic 20-30 s tracks, generated on the card, indexed
              by ``create_fp_database`` into a full 2^20 x 100 ``HashTable``;
 5. match   - ``compute_accuracy_batched`` (batch 128, 4 shifts) over 1,024
@@ -243,7 +250,14 @@ accuracies, before the peak metrics, before the trained-denoiser runs,
 before each Demucs-denoised run, before the FMA index, before the FMA
 identification, before the mesh match and before each scale path (the
 ingest's two invocations, the match, each denoised arm, the oracle, the
-peaks, the demo), and read after each.
+peaks, the demo), and read after each. The hashing kernel's counter is
+zeroed before the match (after the ingest, which hashes with its own
+chain), the conditions, the denoised accuracies, the trained-denoiser runs,
+each Demucs-denoised run, the FMA identification, the mesh match and each
+scale path, and read after those that identify: it must read one launch a
+``match_waveforms`` call a device where the calls are counted here (match,
+conditions, denoised, trained denoiser, Demucs, mesh), and above 0 in the
+FMA identification and the scale match and denoised arms.
 The line before the last is the kernel table, the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
 
@@ -252,6 +266,9 @@ shape the match path launches (512 stacked rows), ``ms`` the launch on the
 time-major tensors as the path calls it and ``wrapper_ms`` the (B, F, C)
 wrapper with its transposed copies; ``query_*``, ``ingest_*`` and
 ``scale_ingest_*`` are the same readings at the other three shapes.
+The ``union_hashes`` entry's ``ms``, ``bound_ms`` and ``library_ms`` (the
+PyTorch chain, which is also its plain version) are phase 3b's at the query
+shape, ``long_30s_*`` at 30 s, and ``launches_*`` the counts above.
 """
 
 from __future__ import annotations
@@ -275,6 +292,7 @@ import torch
 
 from musicfpaugment_torch import _build
 from musicfpaugment_torch.afp.audfprint import DeviceMatcher, HashTable
+from musicfpaugment_torch.afp.audfprint import hashes_cuda as HC
 from musicfpaugment_torch.afp.audfprint import peaks as P
 from musicfpaugment_torch.afp.audfprint import peaks_cuda as K
 from musicfpaugment_torch.afp.audfprint.analyzer import (
@@ -521,6 +539,58 @@ def check_kernels(name, x, vf, sm_mhz):
             fail(f"{kname} at the {name} shape disagrees with its plain version "
                  f"in {mism} cells")
     return out
+
+
+def hash_stage_check(dev, waves_by_shape: dict) -> dict:
+    """The hashing kernel against the plain chain on the same card masks at
+    each shape (``{name: (B, T) waveforms}``, 4 shifts each): 0 mismatching
+    rows required. ``bound_ms`` is the masks' bytes read once and the
+    output's written once at the card's byte rate; ``library_ms`` the plain
+    chain (PyTorch ops) on the card."""
+    from musicfpaugment_torch.afp.audfprint import landmarks as lm
+
+    out = {}
+    for name, waves in waves_by_shape.items():
+        masks = P.find_peaks_shifts(waves, SHIFTS)
+        cols = [int(m.shape[-1]) for m in masks]
+        B, F = int(masks[0].shape[0]), int(masks[0].shape[1])
+        max_peaks = [lm.shift_max_peaks(c, 5) for c in cols]
+        budget = 4096  # match_waveforms' max_query_hashes
+        launches = HC.LAUNCHES["union_hashes"]
+        got = lm.union_hashes(masks, 5, budget)
+        want = lm.union_hashes_plain(masks, 5, budget)
+        torch.cuda.synchronize()
+        if HC.LAUNCHES["union_hashes"] != launches + 1:
+            fail(f"union_hashes did not launch its kernel once at the {name} shape")
+        rows = (got[0] != want[0]).any(1) | (got[1] != want[1]).any(1) | (got[2] != want[2])
+        mism = int(rows.sum())
+        out_len = int(got[0].shape[1])
+        nbytes = B * sum(cols) * F + 2 * B * out_len * 4 + B * 8
+        out[name] = {
+            "B": B, "F": F, "cols": cols, "out_len": out_len,
+            "mismatch_rows": mism, "mean_hashes": float(want[2].float().mean()),
+            "kernel_ms": gpu_ms(lambda: HC.union_hashes_cuda(masks, max_peaks, budget), 20),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+            "library_ms": gpu_ms(lambda: lm.union_hashes_plain(masks, 5, budget), 20),
+        }
+        if mism:
+            fail(f"union_hashes at the {name} shape disagrees with its plain version "
+                 f"in {mism} of {B} rows")
+    return out
+
+
+HASH_LAUNCHES: dict = {}  # phase -> launches of the hashing kernel, by hashes_counted
+
+
+def hashes_counted(label: str, want=None) -> int:
+    """The hashing kernel's launches since its counter was last zeroed, kept
+    as ``HASH_LAUNCHES[label]``: above 0, and ``want`` where given (one a
+    ``match_waveforms`` call a device)."""
+    n = HASH_LAUNCHES[label] = HC.LAUNCHES["union_hashes"]
+    if n <= 0 or (want is not None and n != want):
+        fail(f"the hashing kernel launched {n} times in {label}"
+             + ("" if want is None else f", not {want}"))
+    return n
 
 
 # ---------------------------------------------------------- flax_init_dropout
@@ -1285,6 +1355,7 @@ def trained_denoiser_phase(dev, ckpt_path, ht, dm, analyzer, queries, aug_defaul
     aug_batch = aug_default[:QUERY_BATCH]
     out, verdicts, masks = {}, {}, {}
     K.reset_launch_counts()
+    HC.reset_launch_counts()
     for label, hook in (("float32", strict_hook), ("tf32_allowed", tf32_hook), ("bfloat16", bf16_hook)):
         den = AudfprintPeaks(afp_settings["audfprint"], denoising=True, denoising_model="unet",
                              spec_denoiser=hook, device=dev)
@@ -1307,6 +1378,8 @@ def trained_denoiser_phase(dev, ckpt_path, ht, dm, analyzer, queries, aug_defaul
             if set(row["accuracy"]) != {"No Denoising", "With Denoising", "Mix Pipeline"}:
                 fail(f"trained denoiser {label} {name}: accuracies {sorted(row['accuracy'])}")
     launches = dict(K.LAUNCHES)
+    # a precision: its verdicts' call, then 2 sets x 2 arms of DENOISED_QUERIES
+    hashes_counted("trained_denoiser", 3 * (1 + 2 * 2 * (DENOISED_QUERIES // QUERY_BATCH)))
     for label in ("tf32_allowed", "bfloat16"):
         out[label]["vs_float32"] = {
             "verdicts_equal": sum(a[:2] == b[:2] for a, b in zip(verdicts[label], verdicts["float32"]))
@@ -1516,6 +1589,7 @@ def demucs_denoised_phase(label, model, ht, dm, analyzer, queries, aug_default, 
         expected += dm.match_waveforms(hook(aug_default[s : s + QUERY_BATCH]), shifts=SHIFTS)
     torch.cuda.synchronize()
     K.reset_launch_counts()
+    HC.reset_launch_counts()
     sets = {}
     for name, qs in (("cleans", queries[:DENOISED_QUERIES]), ("default_parameters", list(aug_default))):
         t0 = time.perf_counter()
@@ -1544,6 +1618,8 @@ def demucs_denoised_phase(label, model, ht, dm, analyzer, queries, aug_default, 
     metrics = compute_peaks_metrics_batched(q_paths, analyzer, den, cleans_path=cleans_dir)
     metrics_s = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
+    # 2 sets x 2 arms, then the denoised arm alone
+    hashes_counted(f"demucs_{label.split(':')[0]}", 5 * (DENOISED_QUERIES // QUERY_BATCH))
     line = {
         "phase": "demucs_denoised", "weights": label, "queries": DENOISED_QUERIES, "shifts": SHIFTS,
         "sets": sets, "denoised_arm_alone_queries_per_s": arm_qps,
@@ -2207,10 +2283,12 @@ def fma_eval_phase(dev, tmp: str, io_line: dict) -> dict:
             ht = HashTable(db_path)
             dm = DeviceMatcher(ht, device=dev)
             K.reset_launch_counts()
+            HC.reset_launch_counts()
             acc, ident_s, _ = quietly(lambda: compute_accuracy_batched(
                 q_files, ht, an, batch_size=QUERY_BATCH, shifts=SHIFTS, device_matcher=dm,
                 device=dev))
             launches_ident = dict(K.LAUNCHES)
+            hashes_counted("fma_identify")
             djv = Dejavu(afp_db_paths["dejavu"], DJ_SETTINGS, "set", device=dev)
             dj_acc, dj_ident_s, _ = quietly(lambda: dj_exps.compute_accuracy(q_files, djv, djv))
             n_songs = len(djv.db.get_songs())
@@ -2315,11 +2393,13 @@ def parallel_phase(dev, noise_bank, ir_bank, queries, ht, dm, dj_idx) -> dict:
     q = whole  # degraded queries for the matchers
     single = dm.match_waveforms(q, shifts=SHIFTS)
     K.reset_launch_counts()
+    HC.reset_launch_counts()
     meshed = DeviceMatcher(ht, device=dev, mesh=mesh)
     t0 = time.perf_counter()
     mesh_v = meshed.match_waveforms(q, shifts=SHIFTS)
     mesh_s = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
+    hashes_counted("mesh_match", len(mesh))  # one a shard
     dj_single = DejavuDeviceMatcher(dj_idx, DJ_SETTINGS, device=dev).match_waveforms(q)
     dj_mesh = DejavuDeviceMatcher(dj_idx, DJ_SETTINGS, mesh=mesh).match_waveforms(q)
     line = {
@@ -2697,6 +2777,7 @@ def counted(label: str, launches: dict, fn):
     after into ``launches[label]``; returns (result, seconds)."""
     torch.cuda.synchronize()
     K.reset_launch_counts()
+    HC.reset_launch_counts()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
@@ -2771,6 +2852,7 @@ def scale_phases(dev, work: str) -> dict:
     if state["conditions"]["cleans"]["accuracy"] < MIN_CLEAN_ACCURACY:
         fail(f"scale_match: clean accuracy {state['conditions']['cleans']['accuracy']}")
     require_launches("scale_match", launches)
+    hashes_counted("scale_match")
 
     for model, flags, queries, conds in (
         ("unet", (), SCALE_DENOISED_QUERIES, "cleans,default_parameters"),
@@ -2801,6 +2883,7 @@ def scale_phases(dev, work: str) -> dict:
                     0.0 <= row[k + sfx] <= 1.0 for k in ("accuracy_den", "accuracy_mix")):
                 fail(f"{label}: {c} {row}")
         require_launches(label, launches)
+        hashes_counted(label)
     if state["conditions"]["cleans"]["accuracy_mix"] < MIN_CLEAN_ACCURACY:
         fail(f"scale_unet_denoised: clean mix accuracy {state['conditions']['cleans']}")
 
@@ -2968,7 +3051,8 @@ def main() -> None:
     if tuple(x_stacked.shape) != (SHIFTS * QUERY_BATCH, 256, 251) or n_cols != [251, 250, 250, 250]:
         fail(f"unexpected stacked shape {tuple(x_stacked.shape)}, columns {n_cols}")
     # a batch of the reference-scale ingest: 128 tracks of 30 s, 938 columns
-    x_scale = P.prune_input(SP.corpus_tracks(SCALE_SEED, dev)(np.arange(SCALE_BATCH)))
+    scale_waves = SP.corpus_tracks(SCALE_SEED, dev)(np.arange(SCALE_BATCH))
+    x_scale = P.prune_input(scale_waves)
     if tuple(x_scale.shape) != (SCALE_BATCH, 256, 938):
         fail(f"unexpected scale ingest shape {tuple(x_scale.shape)}")
     at_query = check_kernels("query", x_query, None, sm_mhz)
@@ -2981,6 +3065,11 @@ def main() -> None:
 
     # ---- 3a. Flax's starting weights and the dropout kernel at the training shape
     at_train = flax_init_dropout_phase(dev)
+
+    # ---- 3b. the hashing kernel vs the plain chain, 8 s and 30 s x 4 shifts
+    at_hash = hash_stage_check(dev, {"query": q_batch, "long_30s": scale_waves})
+    emit({"phase": "hash_stage", **at_hash})
+    del scale_waves
 
     # ---- 4. ingest (launch counters zeroed just before the main path)
     K.reset_launch_counts()
@@ -3006,7 +3095,8 @@ def main() -> None:
     if (ht.table.shape != (1 << 20, 100)) or len(ht.names) != N_TRACKS:
         fail("the ingest did not fill a 2^20 x 100 table with every track")
 
-    # ---- 5. match
+    # ---- 5. match (ingest hashes with its own chain: the kernel counts from here)
+    HC.reset_launch_counts()
     t0 = time.perf_counter()
     acc = compute_accuracy_batched(
         queries, ht, analyzer, batch_size=QUERY_BATCH, shifts=SHIFTS,
@@ -3018,6 +3108,7 @@ def main() -> None:
     unseen_s = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     launches_match = {k: launches[k] - launches_ingest[k] for k in launches}
+    hashes_counted("match", N_QUERIES // QUERY_BATCH + 1)  # the batches, the unseen batch
     nomatch = sum(v[0] == "NOMATCH" for v in unseen_v) / N_UNSEEN
 
     # one batch again with the plain prunes on the card: same verdicts
@@ -3124,6 +3215,7 @@ def main() -> None:
     # ---- 8. conditions: identify every condition's queries
     q_names = [names[int(t)] for t in q_ids]
     accuracy = {"cleans": {"accuracy": acc["No Denoising"], "queries_per_s": N_QUERIES / match_s}}
+    HC.reset_launch_counts()
     for cond, out in augmented.items():
         t0 = time.perf_counter()
         got = compute_accuracy_batched(
@@ -3133,6 +3225,7 @@ def main() -> None:
         accuracy[cond] = {"accuracy": got["No Denoising"],
                           "queries_per_s": N_QUERIES / (time.perf_counter() - t0)}
     launches_conditions = dict(K.LAUNCHES)
+    hashes_counted("conditions", len(augmented) * (N_QUERIES // QUERY_BATCH))
     emit({"phase": "conditions", "queries": N_QUERIES, "shifts": SHIFTS,
           "conditions": accuracy, "launches": launches_conditions})
     for cond, floor in MIN_ACCURACY.items():
@@ -3183,6 +3276,7 @@ def main() -> None:
     dm.match_waveforms(aug_batch, shifts=SHIFTS, denoiser=hook)
     torch.cuda.synchronize()
     K.reset_launch_counts()
+    HC.reset_launch_counts()
     den_names = q_names[:DENOISED_QUERIES]
     denoised = {}
     for label, qs in (("cleans", queries[:DENOISED_QUERIES]),
@@ -3195,6 +3289,7 @@ def main() -> None:
         denoised[label] = {"accuracy": got,
                            "queries_per_s": DENOISED_QUERIES / (time.perf_counter() - t0)}
     launches_denoised = dict(K.LAUNCHES)
+    hashes_counted("denoised", 2 * 2 * (DENOISED_QUERIES // QUERY_BATCH))  # 2 sets x 2 arms
     t0 = time.perf_counter()
     arm = compute_accuracy_batched(
         list(aug_default), ht, analyzer_den, batch_size=QUERY_BATCH, shifts=SHIFTS,
@@ -3391,6 +3486,21 @@ def main() -> None:
         "torch_dropout_ms_other_masks": drop_bf16["step_forward"]["torch_dropout_ms"],
         "bf16_train_step_ms": at_train["bf16_step"]["kernel_ms"],
         "bf16_train_step_plain_route_ms": at_train["bf16_step"]["plain_ms"],
+    })
+    hq, hl = at_hash["query"], at_hash["long_30s"]
+    kernels.append({
+        "name": "union_hashes", "route": "cuda",
+        "source": "musicfpaugment_torch/csrc/union_hashes.cu",
+        # no Pallas kernel: XLA generates the JAX package's hashing stage
+        "replaces": "musicfpaugment_tpu/afp/audfprint/landmarks.py:255",
+        "launches": sum(HASH_LAUNCHES.values()),
+        **{f"launches_{label}": n for label, n in HASH_LAUNCHES.items()},
+        "mismatch_rows": hq["mismatch_rows"] + hl["mismatch_rows"],
+        "ms": hq["kernel_ms"], "bound_ms": hq["bound_ms"], "bound_by": "bytes",
+        # the plain version is the PyTorch chain the kernel replaced
+        "plain_ms": hq["library_ms"], "library_ms": hq["library_ms"], "shape": "query",
+        "long_30s_ms": hl["kernel_ms"], "long_30s_bound_ms": hl["bound_ms"],
+        "long_30s_library_ms": hl["library_ms"],
     })
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi_line, flush=True)

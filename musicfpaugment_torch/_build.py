@@ -40,7 +40,9 @@ _F = ctypes.c_float
 _I64 = ctypes.c_int64
 _U32 = ctypes.c_uint32
 _U64 = ctypes.c_uint64
-# C signatures of csrc/peaks_prune.cu and csrc/dropout_threefry.cu
+# C signatures of csrc/peaks_prune.cu, csrc/dropout_threefry.cu and
+# csrc/union_hashes.cu; each returns an int (a cudaError_t) unless _RESTYPES
+# says otherwise
 _SIGNATURES = {
     # sgram, out, gauss, B, C, F, a_dec, maxpks, stream
     "mfpa_forward_prune": [_P, _P, _P, _I, _I, _I, _F, _I, _P],
@@ -48,7 +50,13 @@ _SIGNATURES = {
     "mfpa_backward_prune": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     # x, out, dtype, B, C, H, W, k0, k1, offset, keep, keep_t, stream
     "mfpa_dropout_threefry": [_P, _P, _I, _I64, _I, _I, _I, _U32, _U32, _U64, _F, _F, _P],
+    # S, B, F, c_max, peak_total
+    "mfpa_union_hashes_scratch_bytes": [_I, _I, _I, _I, _I],
+    # shifts (host table), S, B, F, c_max, peak_total, out_len, scratch,
+    # times, hashes, n_valid, stream
+    "mfpa_union_hashes": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
 }
+_RESTYPES = {"mfpa_union_hashes_scratch_bytes": _I64}
 
 
 def sources() -> List[str]:
@@ -124,6 +132,6 @@ def library() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             _lib = lib
     return _lib

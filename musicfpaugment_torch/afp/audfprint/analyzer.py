@@ -172,8 +172,7 @@ class AudfprintPeaks:
         """(B, F, C) masks -> ((B, max_hashes, 2) int32, (B, max_hashes)
         bool), with the static pads of the JAX package: <= maxpksperframe
         peaks per column rounded up to 128, 3 pairs per peak."""
-        C = int(masks.shape[-1])
-        max_peaks = -(-self.maxpksperframe * C // 128) * 128
+        max_peaks = lm.shift_max_peaks(int(masks.shape[-1]), self.maxpksperframe)
         return lm.hashes_from_masks_batched(
             masks, max_peaks=max_peaks, max_hashes=max_peaks * lm.MAXPAIRSPERPEAK
         )

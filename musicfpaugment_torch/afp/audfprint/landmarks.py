@@ -12,7 +12,7 @@ give the same hashes; both are bit-identical to the JAX package's.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -266,6 +266,51 @@ def hashes_from_masks_batched(
     times = cols[:, :, None].expand(B, P, MAXPAIRSPERPEAK).reshape(B, -1)
     times, hashes, hvalid = sort_dedup_hashes(times, hashes, hvalid)
     return torch.stack([times, hashes], dim=-1), hvalid
+
+
+def shift_max_peaks(n_cols: int, maxpksperframe: int) -> int:
+    """The peak budget of a shift's (B, F, n_cols) masks: ``maxpksperframe``
+    a column, rounded up to a multiple of 128."""
+    return -(-maxpksperframe * n_cols // 128) * 128
+
+
+def union_hashes_plain(
+    masks_by_shift: Sequence[torch.Tensor], maxpksperframe: int, budget: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The (time, hash) union of several shifts' (B, F, C_s) peak masks:
+    each shift's hashes (:func:`hashes_from_masks_batched` at
+    :func:`shift_max_peaks`), the cross-shift sort and dedup, and the
+    compaction to ``out_len = min(budget, sum of the shifts' 3 * P_s)``
+    lanes. Returns (times (B, out_len) int32, hashes (B, out_len) int32,
+    n_valid (B,) int64), ascending and distinct, zeros past ``n_valid``;
+    ``n_valid`` counts every distinct pair, also those past ``out_len``."""
+    th_parts, valid_parts = [], []
+    for masks in masks_by_shift:
+        max_peaks = shift_max_peaks(int(masks.shape[-1]), maxpksperframe)
+        th, v = hashes_from_masks_batched(
+            masks, max_peaks=max_peaks, max_hashes=max_peaks * MAXPAIRSPERPEAK
+        )
+        th_parts.append(th)
+        valid_parts.append(v)
+    th = torch.cat(th_parts, dim=1)
+    valid = torch.cat(valid_parts, dim=1)
+    t, h, v = sort_dedup_hashes(th[..., 0], th[..., 1], valid)
+    return compact_valid_first(t, h, v, out_len=min(budget, t.shape[-1]))
+
+
+def union_hashes(
+    masks_by_shift: Sequence[torch.Tensor], maxpksperframe: int, budget: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`union_hashes_plain`'s result. On CUDA masks it is one launch
+    of the hand-written kernel of ``hashes_cuda.py`` (which raises if it
+    cannot build or launch, or the masks are not laid out as the prunes
+    leave them); on CPU masks it is the plain chain."""
+    if masks_by_shift[0].is_cuda:
+        from musicfpaugment_torch.afp.audfprint import hashes_cuda
+
+        max_peaks = [shift_max_peaks(int(m.shape[-1]), maxpksperframe) for m in masks_by_shift]
+        return hashes_cuda.union_hashes_cuda(masks_by_shift, max_peaks, budget)
+    return union_hashes_plain(masks_by_shift, maxpksperframe, budget)
 
 
 def hashes_from_mask_np(mask: np.ndarray) -> np.ndarray:

@@ -394,26 +394,15 @@ class DeviceMatcher:
 
     @staticmethod
     def _compact_hashes(waveforms, vsamp, n_shifts: int, budget: int, peak_kw: dict):
-        """Every shift's peaks from one forward and one backward prune, the
-        landmark hashes, the cross-shift dedup and the compaction to
-        ``budget`` lanes, on the waveforms' device: (times, hashes, number
-        of valid hashes of each query)."""
+        """Every shift's peaks from one forward and one backward prune, then
+        the landmark hashes, the cross-shift dedup and the compaction to
+        ``budget`` lanes (``landmarks.union_hashes``: one kernel launch on
+        the card), on the waveforms' device: (times, hashes, number of valid
+        hashes of each query)."""
         with annotate("matcher.peaks"):
             masks_by_shift = find_peaks_shifts(waveforms, n_shifts, valid_samples=vsamp, **peak_kw)
         with annotate("matcher.hashes"):
-            th_parts, valid_parts = [], []
-            for masks in masks_by_shift:
-                C = int(masks.shape[-1])
-                max_peaks = -(-peak_kw["maxpksperframe"] * C // 128) * 128
-                th, v = lm.hashes_from_masks_batched(
-                    masks, max_peaks=max_peaks, max_hashes=max_peaks * lm.MAXPAIRSPERPEAK
-                )
-                th_parts.append(th)
-                valid_parts.append(v)
-            th = torch.cat(th_parts, dim=1)
-            valid = torch.cat(valid_parts, dim=1)
-            t, h, v = lm.sort_dedup_hashes(th[..., 0], th[..., 1], valid)
-            return lm.compact_valid_first(t, h, v, out_len=min(budget, t.shape[-1]))
+            return lm.union_hashes(masks_by_shift, peak_kw["maxpksperframe"], budget)
 
     def match_hashes_batch(
         self, hashes_list: Sequence[np.ndarray]

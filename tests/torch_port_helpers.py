@@ -13,10 +13,10 @@ import contextlib
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from musicfpaugment_tpu.augment import transforms as JT
+from torch_threads import few_threads  # noqa: F401  (re-exported)
 
 SR = 8000
 
@@ -138,17 +138,6 @@ def port_banks(noise_bank, ir_bank):
 
 
 # ------------------------------------------------------------------ UNet
-
-
-@pytest.fixture(scope="module")
-def few_threads():
-    """Two intra-op threads for a module's tests: convolutions on every core
-    from several test processes at once take many times longer than on two
-    each. Import it into a test module and name it in ``usefixtures``."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def flax_unet_variables(model, sample_shape, seed=0):
