@@ -35,6 +35,8 @@ from portbench import inputs as I
 from portbench.judge import identify as J
 
 SEED_PARTS = ("start", "weights", "sample")
+# the analyzer's attribute that holds the hook of a kind's ``DOMAIN``
+HOOK_ATTR = {"spectrogram": "spec_denoiser", "waveform": "wave_denoiser"}
 
 
 def setup(run: H.Run) -> dict:
@@ -44,7 +46,6 @@ def setup(run: H.Run) -> dict:
     seeds = H.sub_seeds(run.seed, SEED_PARTS)
     content = I.content_seeds(tr)
     with run.part("import"):
-        from musicfpaugment_torch import convert
         from musicfpaugment_torch.afp.audfprint.analyzer import AudfprintPeaks
         from musicfpaugment_torch.afp.audfprint.hash_table import HashTable
         from musicfpaugment_torch.afp.audfprint.matcher_device import DeviceMatcher
@@ -89,21 +90,15 @@ def setup(run: H.Run) -> dict:
         with run.part("weights"):
             model = I.program_model(cfg).to(dev)
             model.load_state_dict(I.denoiser_weights(cfg, seeds["weights"], dev))
-            if cfg["model"] == "unet":
-                hook = convert.unet_denoiser(model)
-                arms.append((arm, AudfprintPeaks(s, denoising=True, denoising_model="unet",
-                                                 spec_denoiser=hook, device=dev)))
-            else:
-                hook = convert.demucs_denoiser(model)
-                arms.append((arm, AudfprintPeaks(s, denoising=True, denoising_model="demucs",
-                                                 wave_denoiser=hook, device=dev)))
+            arms.append((arm, I.kind(cfg).program_arm(model, s, dev)))
     n_batches = tr["pool"] // B
     start = int(np.random.default_rng(seeds["start"]).integers(n_batches))
     rng = np.random.default_rng(seeds["sample"])
     rec_batches = sorted(rng.choice(tr["sample_batches"], size=2, replace=False).tolist())
     return {"seeds": seeds, "content": content, "ht": ht, "dm": dm, "pool": pool,
             "q_ids": q_ids, "names": [f"t{int(i):06d}" for i in q_ids], "arms": arms,
-            "model": model, "B": B, "n_batches": n_batches, "start": start,
+            "model": model, "domain": I.kind(cfg).DOMAIN if model is not None else None,
+            "B": B, "n_batches": n_batches, "start": start,
             "rec_batches": rec_batches, "records": {}, "rng": rng}
 
 
@@ -147,11 +142,11 @@ def recorders(st: dict, calls: list):
     dm._compact_hashes = compact
     hooks = []
     for name, a in st["arms"]:
-        for attr in ("spec_denoiser", "wave_denoiser"):
-            fn = getattr(a, attr, None)
-            if a.denoising and fn is not None:
-                hooks.append((a, attr, fn))
-                setattr(a, attr, kept(fn, recs[name]))
+        if a.denoising:
+            attr = HOOK_ATTR[st["domain"]]
+            fn = getattr(a, attr)
+            hooks.append((a, attr, fn))
+            setattr(a, attr, kept(fn, recs[name]))
 
     def undo():
         MD.find_peaks_shifts = orig_peaks
@@ -218,8 +213,13 @@ def run(run: H.Run) -> dict:
     hashes = {name: [round(float(rec[name]["hashes"][2].float().mean()), 1)
                      for rec in st["records"].values() if rec[name]["hashes"] is not None]
               for name, _ in st["arms"]}
+    median = float(np.median(times))
+    long = [i for i, t in enumerate(times) if t > 2 * median]
+    stretches = sum(1 for j, i in enumerate(long) if j == 0 or long[j - 1] != i - 1)
     print(f"portbench: {len(times)} batches, {attempted} queries, batch ms median "
-          f"{1e3 * float(np.median(times)):.3f}, mean hashes a query in the recorded batches "
+          f"{1e3 * median:.3f} mean {1e3 * float(np.mean(times)):.3f}, {len(long)} over twice "
+          f"the median ({1e3 * sum(times[i] for i in long):.1f} ms, {stretches} stretches, "
+          f"batches {long[:1] + long[-1:]}), mean hashes a query in the recorded batches "
           f"{hashes}",
           file=sys.stderr, flush=True)
     measured = {"identify_qps": attempted / elapsed,
@@ -243,12 +243,7 @@ def traced(run: H.Run, st: dict, step, elapsed: float, n_batches: int) -> None:
     q_len = cfg["query_seconds"] * s["samplerate"]
     flops = 0
     if st["model"] is not None:
-        if cfg["model"] == "unet":
-            frames = 1 + q_len // s["n_hop"]
-            per = I.forward_flops(cfg, (B, s["n_fft"] // 2 + 1, frames)) * s["shifts"]
-        else:
-            per = I.forward_flops(cfg, (B, q_len))
-        flops = per * n_batches
+        flops = I.kind(cfg).batch_flops(cfg, B) * n_batches
     run.layer.update({"model_flops": flops, "window_s": elapsed})
     from musicfpaugment_torch.afp.audfprint import peaks_cuda
 

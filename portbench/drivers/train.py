@@ -31,10 +31,15 @@ from portbench import inputs as I
 from portbench.judge import train as J
 
 SEED_PARTS = ("corpus", "crops", "weights", "trainer")
+# the one kind the trainer's spectrogram input and ``judge/train.py`` run
+KIND = "unet"
 
 
 def setup(run: H.Run) -> dict:
     cfg, tr, dev = run.config, run.traffic, run.device
+    if cfg["model"] != KIND:
+        raise SystemExit(f"portbench: the train driver runs the {KIND} kind only, "
+                         f"not {cfg['model']!r} (configuration {run.cell['config']!r})")
     seeds = H.sub_seeds(run.seed, SEED_PARTS)
     with run.part("import"):
         from musicfpaugment_torch.augment.banks import IRBank, NoiseBank

@@ -9,6 +9,7 @@ same."""
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 from typing import Dict, Sequence, Tuple
 from unittest import mock
@@ -142,22 +143,34 @@ def degrade(clean: torch.Tensor, noise_bank, ir_bank, parameters: dict, seed: in
 
 # ------------------------------------------------------------------ models
 
+def kind(config: dict):
+    """The module of the configuration's denoiser kind, ``kinds/<model>.py``:
+    the program's and the reference's modules, the identify cells' weight
+    rule, the hook's domain and arm, the FLOPs of a batch, the TF32 control
+    and the CPU tests' sizes. Everything that depends on the kind is there."""
+    return _kind_module(str(config["model"]))
+
+
+@functools.lru_cache(maxsize=None)
+def _kind_module(name: str):
+    from portbench import harness as H
+
+    path = os.path.join(H.BENCH_DIR, "kinds", name + ".py")
+    if not os.path.isfile(path):
+        raise SystemExit(f"portbench: model {name!r} has no kind file "
+                         f"{os.path.relpath(path, H.REPO)}")
+    return H.load_file_module(path, "portbench_kind_" + name.replace(".", "_").replace("-", "_"))
+
+
 def reference_model(config: dict, device="meta") -> torch.nn.Module:
     """The configuration's model from the frozen plain modules."""
-    from portbench.ref.models.demucs import Demucs
-    from portbench.ref.models.unet import UNet
-
-    kind, kwargs = config["model"], dict(config["model_args"])
     with torch.device(device):
-        return UNet(**kwargs) if kind == "unet" else Demucs(**kwargs)
+        return kind(config).reference_model(dict(config["model_args"]))
 
 
 def program_model(config: dict) -> torch.nn.Module:
     """The configuration's model from the program (on the CPU)."""
-    from musicfpaugment_torch.models import Demucs, UNet
-
-    kind, kwargs = config["model"], dict(config["model_args"])
-    return UNet(**kwargs) if kind == "unet" else Demucs(**kwargs)
+    return kind(config).program_model(dict(config["model_args"]))
 
 
 def _kinds(model: torch.nn.Module) -> Dict[str, str]:
@@ -169,14 +182,17 @@ def _kinds(model: torch.nn.Module) -> Dict[str, str]:
         pre = mname + "." if mname else ""
         for pname, _ in list(mod.named_parameters(recurse=False)) + list(mod.named_buffers(recurse=False)):
             if isinstance(mod, nn.modules.batchnorm._BatchNorm):
-                kind = "bn_" + pname
+                leaf = "bn_" + pname
+            elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
+                # 1-D scales: drawn as BatchNorm's are
+                leaf = "bn_weight" if pname == "weight" else "bias"
             elif isinstance(mod, nn.LSTM):
-                kind = "lstm_weight" if pname.startswith("weight") else "bias"
+                leaf = "lstm_weight" if pname.startswith("weight") else "bias"
             elif isinstance(mod, (nn.ConvTranspose1d, nn.ConvTranspose2d)):
-                kind = "tconv_weight" if pname == "weight" else "bias"
+                leaf = "tconv_weight" if pname == "weight" else "bias"
             else:
-                kind = "weight" if pname == "weight" else "bias"
-            kinds[pre + pname] = kind
+                leaf = "weight" if pname == "weight" else "bias"
+            kinds[pre + pname] = leaf
     return kinds
 
 
@@ -184,9 +200,11 @@ def weights(config: dict, seed: int, device: str) -> Dict[str, torch.Tensor]:
     """A state dict for the configuration's model, drawn on ``device`` from
     ``seed`` in one call and scaled leaf by leaf: weights by their fan-in so
     that activations stay of order 1, BatchNorm scales near 1, biases and
-    running statistics small but not trivial, running variances positive."""
-    shapes = reference_model(config).state_dict()
-    kinds = _kinds(reference_model(config))
+    running statistics small but not trivial, running variances positive.
+    LayerNorm and GroupNorm scales are drawn as BatchNorm's."""
+    model = reference_model(config)
+    shapes = model.state_dict()
+    kinds = _kinds(model)
     floats = {k: v for k, v in shapes.items() if v.is_floating_point()}
     total = sum(v.numel() for v in floats.values())
     gen = torch.Generator(device=device)
@@ -200,16 +218,16 @@ def weights(config: dict, seed: int, device: str) -> Dict[str, torch.Tensor]:
         n = v.numel()
         z = flat[at : at + n].view(v.shape)
         at += n
-        kind = kinds[k]
-        if kind in ("weight", "tconv_weight"):
-            fan = v.shape[0] if kind == "tconv_weight" else v.shape[1]
+        leaf = kinds[k]
+        if leaf in ("weight", "tconv_weight"):
+            fan = v.shape[0] if leaf == "tconv_weight" else v.shape[1]
             fan *= int(np.prod(v.shape[2:])) if v.dim() > 2 else 1
             t = z * float(np.sqrt(2.0 / fan))
-        elif kind == "lstm_weight":
+        elif leaf == "lstm_weight":
             t = z * float(0.5 / np.sqrt(v.shape[1]))
-        elif kind == "bn_weight":
+        elif leaf == "bn_weight":
             t = 1.0 + 0.1 * z
-        elif kind == "bn_running_var":
+        elif leaf == "bn_running_var":
             t = 1.0 + 0.25 * z.abs()
         else:  # biases, BatchNorm shifts and running means
             t = 0.1 * z
@@ -219,81 +237,18 @@ def weights(config: dict, seed: int, device: str) -> Dict[str, torch.Tensor]:
 
 # the seeded part of a near-identity denoiser, of the fan-in scale
 PERTURBATION = 0.05
-# a GLU gate's bias that holds it open: its sigmoid is 1 in float32
-GATE_OPEN = 20.0
 
 
 def denoiser_weights(config: dict, seed: int, device: str) -> Dict[str, torch.Tensor]:
     """The weights an identify cell's denoiser runs with: the identity along
-    the model's outermost path plus a seeded perturbation, so that its
-    output is a spectrogram or a waveform like its input, as a trained
-    denoiser's is, and the peaks and hashes after it are about as many as
-    the input's on every seed (fully random weights make the matcher's work
-    move with the seed)."""
+    the model's outermost path plus a seeded perturbation (the kind's
+    ``near_identity`` rule), so that its output is a spectrogram or a
+    waveform like its input, as a trained denoiser's is, and the peaks and
+    hashes after it are about as many as the input's on every seed (fully
+    random weights make the matcher's work move with the seed)."""
     state = weights(config, seed, device)
-    if config["model"] == "unet":
-        _near_identity_unet(state)
-    else:
-        _near_identity_demucs(state, config["model_args"])
+    kind(config).near_identity(state, config["model_args"])
     return state
-
-
-def _near_identity_unet(state: Dict[str, torch.Tensor]) -> None:
-    """Every weight of :func:`weights` at :data:`PERTURBATION`, every
-    BatchNorm the identity in evaluation, and the identity along the skip
-    path: the centre taps of ``inc``, of ``up4``'s convolutions on the skip's
-    first channel and of ``outc``. (A deep path at full scale joined at
-    :data:`PERTURBATION`, as Demucs has, moved the hashes by up to a quarter
-    with the seed.)"""
-    for k, v in state.items():
-        if k.endswith("running_var"):
-            v.fill_(1.0 - 1e-5)
-        elif k.endswith("running_mean") or (k.endswith("bias") and ".bn" in k):
-            v.zero_()
-        elif ".bn" in k and k.endswith("weight"):
-            v.fill_(1.0)
-        elif v.is_floating_point():
-            v.mul_(PERTURBATION)
-    for conv in ("inc.conv1", "inc.conv2", "up4.conv.conv1", "up4.conv.conv2"):
-        state[conv + ".weight"][0, 0, 1, 1] += 1.0
-    state["outc.weight"][0, 0, 0, 0] += 1.0
-    state["outc.bias"].zero_()
-
-
-def _near_identity_demucs(state: Dict[str, torch.Tensor], args: dict) -> None:
-    """Encoder 0 and the output decoder carry the (resampled) waveform by a
-    perfect-reconstruction pair at stride ``S`` and kernel ``2 S``: tap ``t``
-    of the analysis is its own channel pair (+ and - through the ReLU),
-    weighted by the sine window ``w``, ``w[t]^2 + w[t + S]^2 = 1``; the
-    GLUs' gates on those channels are held open, and the last transposed
-    convolution sums the taps back with ``w``. Those two layers carry the
-    rest of :func:`weights` at :data:`PERTURBATION`; the deep path (encoders
-    1 on, the LSTM, the other decoders) keeps the full scale of
-    :func:`weights` and adds to the last decoder's input: about a tenth of
-    the output, so that a fault in it shows (zeroing the LSTM moves the
-    output by 6-8e-4 of its peak; the hashes stay within some percent of
-    the input's)."""
-    K, S = int(args.get("kernel_size", 8)), int(args.get("stride", 4))
-    H = int(args.get("hidden", 48))
-    depth = int(args.get("depth", 5))
-    if K != 2 * S or H < 2 * K:
-        raise ValueError(f"no near-identity Demucs for kernel {K}, stride {S}, hidden {H}")
-    last = f"decoder.{depth - 1}."
-    for k, v in state.items():
-        if k.startswith(("encoder.0.", last)):
-            v.mul_(PERTURBATION)
-    dev = state["encoder.0.0.weight"].device
-    t = torch.arange(K, device=dev)
-    w = torch.sin(torch.pi * (t + 0.5) / K)
-    enc, glu = state["encoder.0.0.weight"], state["encoder.0.2.weight"]
-    enc[2 * t, 0, t] += w
-    enc[2 * t + 1, 0, t] -= w
-    glu[t, 2 * t, 0] += 1.0
-    glu[t, 2 * t + 1, 0] -= 1.0
-    state["encoder.0.2.bias"][H + t] += GATE_OPEN
-    state[last + "0.weight"][t, t, 0] += 1.0
-    state[last + "0.bias"][H + t] += GATE_OPEN
-    state[last + "2.weight"][t, 0, t] += w
 
 
 # ------------------------------------------------------------------ counts
@@ -309,8 +264,10 @@ def forward_flops(config: dict, shape: Tuple[int, ...]) -> int:
     input of ``shape``, from the shapes each layer sees (run on the meta
     device, so nothing is computed): every convolution as a direct
     convolution, the LSTM's gate products (4 gates x (input + hidden) per
-    unit, step and direction, every layer) and the linear layer after it.
-    Element-wise layers, normalisation and resampling are not counted."""
+    unit, step and direction, every layer) and every linear layer.
+    Element-wise layers, normalisation and resampling are not counted, nor
+    is what no module hook sees (a functional attention's products): a
+    kind's ``batch_flops`` adds that."""
     from torch import nn
 
     model = reference_model(config).eval()

@@ -2,20 +2,21 @@
 decides ``correct`` in the identify cells.
 
 For each sampled query the reference computes, from the same degraded
-waveform and the same weights: the denoiser's output (UNet on each shift's
-normalised magnitudes, Demucs on the waveform), every shift's peak masks
-(the frontends and both prunes as plain loops), the landmark hashes of all
-shifts deduplicated, and the verdict of the numpy matcher over the hash
-table. The program's table is the one state the reference cannot rebuild
+waveform and the same weights: the denoiser's output (on each shift's
+normalised magnitudes or on the waveform, as the kind's ``DOMAIN`` says),
+every shift's peak masks (the frontends and both prunes as plain loops),
+the landmark hashes of all shifts deduplicated, and the verdict of the
+numpy matcher over the hash table. The program's table is the one state the reference cannot rebuild
 in a run (10,000 tracks, the reservoir's draws in ingest order), so the
 reference reads it, and checks by itself the stage it skips: every table
 entry of each sampled query's track and of each track a verdict names is
 recomputed from that track's waveform.
 
 Precisions: ``strict`` is the configuration's float32 with TF32 off;
-``tf32`` lets cuDNN's convolutions and LSTM use TF32 (the control of a cell
-with a model); ``bf16_spectrogram`` rounds every spectrogram to bfloat16
-before the prunes (the control of a cell without one).
+``tf32`` lets the model use TF32 where its kind's ``tf32`` says (cuDNN's
+convolutions and LSTM for the UNet and Demucs; the control of a cell with
+a model); ``bf16_spectrogram`` rounds every spectrogram to bfloat16 before
+the prunes (the control of a cell without one).
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ from __future__ import annotations
 import contextlib
 import sys
 from typing import Dict, List, Sequence
-from unittest import mock
 
 import numpy as np
 import torch
@@ -34,20 +34,15 @@ PRECISIONS = ("strict", "tf32", "bf16_spectrogram")
 
 
 @contextlib.contextmanager
-def precision_of(precision: str):
-    """The reference models' precision context: under ``tf32`` their own
-    strict-float32 switch lets TF32 through."""
+def precision_of(config: dict, precision: str):
+    """The reference model's precision context: under ``tf32`` the kind's
+    control (``kinds/<model>.py``'s ``tf32``) lets TF32 through."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, not {precision!r}")
     if precision != "tf32":
         yield
         return
-    from portbench.ref import device as D
-    from portbench.ref.models import demucs as RD
-    from portbench.ref.models import unet as RU
-
-    allow = lambda _allow: D.cudnn_tf32(True)  # noqa: E731
-    with mock.patch.object(RU, "cudnn_tf32", allow), mock.patch.object(RD, "cudnn_tf32", allow):
+    with I.kind(config).tf32():
         yield
 
 
@@ -104,8 +99,8 @@ def reference_outputs(config: dict, waves: torch.Tensor, arm: str, hook, table,
     s = config["audfprint"]
     seen: List[torch.Tensor] = []
     spec_hook, x = None, waves
-    with precision_of(precision):
-        if arm == "denoised" and config["model"] == "demucs":
+    with precision_of(config, precision):
+        if arm == "denoised" and I.kind(config).DOMAIN == "waveform":
             x = hook(waves)
             seen.append(x)
         elif arm == "denoised":

@@ -97,7 +97,7 @@ def reference_steps(config: dict, traffic: dict, seeds: Dict[str, int], banks, b
         x = aug.apply(clean, aug.draw(clean.shape[0], clean.shape[-1], k_aug))
         rec["augmented"].append(x.detach().clone())
         opt.zero_grad(set_to_none=True)
-        with precision_of(precision), RDEV.cudnn_tf32(precision == "tf32"):
+        with precision_of(config, precision), RDEV.cudnn_tf32(precision == "tf32"):
             pred = model(spec(x), dropout_key=k_drop, batch_offset=0)
             target = spec(clean)
             if fault == "half_batch":

@@ -1,6 +1,6 @@
 """The yardstick's counters against hand counts at small shapes: the UNet's
-and Demucs' forward FLOPs, the prunes' bytes and operations, the
-roofline's least time, and the statistics of a window."""
+and Demucs' forward FLOPs (through their kind files), the prunes' bytes and
+operations, the roofline's least time, and the statistics of a window."""
 
 from __future__ import annotations
 
@@ -83,31 +83,36 @@ def test_union_and_breakdown():
     assert math.isclose(H.device_seconds(trace, lambda n: n == "k1")[0], 15e-6)
 
 
-@pytest.mark.parametrize("model,args,shape", [
-    ("demucs", {"hidden": 16, "depth": 3, "sample_rate": 8000}, (2, 4000)),
-    ("unet", {"n_channels": 1, "n_classes": 1, "base": 4, "bilinear": False, "rate": 0.05},
-     (2, 33, 40)),
+@pytest.mark.parametrize("model,shape,deep", [
+    ("demucs", (2, 4000), "lstm."),
+    ("unet", (2, 33, 40), None),
 ])
-def test_near_identity_denoisers_keep_their_input(model, args, shape):
+def test_near_identity_denoisers_keep_their_input(model, shape, deep):
     """The identify cells' weights give back the input, changed by some
-    percent on every seed; in Demucs the deep path (here its LSTM) still
-    moves the output."""
+    percent on every seed; where the kind has a deep path at full scale
+    (Demucs: its LSTM), zeroing it still moves the output."""
     import torch
 
     from portbench.judge import identify as J
 
-    cfg = {"model": model, "model_args": args}
-    x = torch.rand(shape) if model == "unet" else torch.randn(shape)
+    cfg = {"model": model}
+    cfg["model_args"] = dict(I.kind(cfg).TINY_ARGS)
+    x = torch.rand(shape) if I.kind(cfg).DOMAIN == "spectrogram" else torch.randn(shape)
     for seed in (1, 2, 3):
         w = I.denoiser_weights(cfg, seed, "cpu")
         y = J.reference_denoiser(cfg, "cpu", w)[1](x)
         assert 0.0 < float((y - x).norm() / x.norm()) < 0.2
-        if model == "demucs":
+        if deep:
             for k in w:
-                if k.startswith("lstm."):
+                if k.startswith(deep):
                     w[k].zero_()
             moved = J.reference_denoiser(cfg, "cpu", w)[1](x)
             assert float((moved - y).abs().max() / y.abs().max()) > 1e-4
+
+
+def test_unknown_kind_names_its_missing_file():
+    with pytest.raises(SystemExit, match=r"portbench/kinds/nokind\.py"):
+        I.kind({"model": "nokind"})
 
 
 def test_cached_inputs_are_made_once(tmp_path, monkeypatch):

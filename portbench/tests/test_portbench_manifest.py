@@ -21,6 +21,8 @@ UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 M = H.load_manifest()
 E2E = {m["name"]: m for m in M["end_to_end"]}
 CELLS = {w["name"]: w for w in M["workloads"]}
+KINDS = sorted(os.path.splitext(f)[0] for f in os.listdir(os.path.join(H.BENCH_DIR, "kinds"))
+               if f.endswith(".py"))
 
 
 def reports(cell: str, metric: dict) -> bool:
@@ -81,6 +83,7 @@ def test_every_name_has_its_files():
         cfg = json.load(open(path))
         assert set(c["reduced"]) <= set(cfg) and len(c["reduced"]) <= 16
         assert c["source"].startswith("https://")
+        assert os.path.exists(os.path.join(H.BENCH_DIR, "kinds", cfg["model"] + ".py"))
     files = [c["file"] for c in M["configs"]]
     assert len(files) == len(set(files))
     pairs = set()
@@ -123,10 +126,18 @@ def test_the_reference_reaches_nothing_of_the_program():
         for path in _py_files(os.path.join(H.BENCH_DIR, sub)):
             for name in _imports(path):
                 assert name.split(".")[0] != "musicfpaugment_torch", (path, name)
+    # every module of the reference and the judge, and each kind's
+    # reference model and control
     code = ("import sys, pkgutil, importlib, portbench.ref as r, portbench.judge as j\n"
+            "from portbench import inputs as I\n"
             "for pkg in (r, j):\n"
             "    for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
             "        importlib.import_module(m.name)\n"
+            "for k in " + repr(KINDS) + ":\n"
+            "    kind = I.kind({'model': k})\n"
+            "    I.reference_model({'model': k, 'model_args': kind.TINY_ARGS}, 'cpu')\n"
+            "    with kind.tf32():\n"
+            "        pass\n"
             "print(sorted({n.split('.')[0] for n in sys.modules} & "
             "{'musicfpaugment_torch', 'musicfpaugment_tpu', 'jax', 'jaxlib', 'flax'}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=H.REPO, capture_output=True,

@@ -139,9 +139,12 @@ def test_bf16_spectrogram_control_fails_a_limit(cell):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cell", [c for c in CELLS if "identify" in c and "plain" not in c])
 def test_tf32_control_fails_a_limit(cell, cuda):
-    readings = _control_readings(cell, "tf32", device="cuda")
+    """At the configuration's own widths, which the limits were set at: at
+    the CPU tests' (Demucs hidden 16, depth 3) TF32 moved the output by
+    2.7e-5 of its peak only, under ``den_rel``'s 5e-5, and failed nothing."""
+    readings = _control_readings(cell, "tf32", device="cuda", published_widths=True)
     limits = H.read_json(f"portbench/limits/{cell}.json")["limits"]
-    assert any(v > limits[k] for k, v in readings.items())
+    assert any(v > limits[k] for k, v in readings.items()), readings
 
 
 @pytest.mark.cuda
@@ -163,14 +166,19 @@ def test_train_tf32_control_fails_a_limit(cuda):
     assert any(v > limits[k] for k, v in readings.items())
 
 
-def _control_readings(cell: str, precision: str, device: str = "cpu") -> dict:
-    """The control's numbers over every query of the recorded batches."""
+def _control_readings(cell: str, precision: str, device: str = "cpu",
+                      published_widths: bool = False) -> dict:
+    """The control's numbers over every query of the recorded batches, at
+    the small sizes (with the configuration's own model if
+    ``published_widths``)."""
     import os
     import time
 
     from portbench.judge import identify as J
 
     ov = tiny.overrides(cell)
+    if published_widths:
+        del ov["config"]["model_args"]
     ov["traffic"]["sample_queries"] = 2 * ov["traffic"]["batch"]
     run = H.Run(H.load_manifest(), cell, 77, 0.0, False, device, time.perf_counter(), ov)
     D = H.load_file_module(os.path.join(H.BENCH_DIR, "drivers", "identify.py"), "pb_id_t")

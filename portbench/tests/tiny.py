@@ -1,6 +1,6 @@
 """Small sizes for running whole cells on the CPU in the tests: a few short
-tracks, a shallow 2^20-bucket table, small banks and narrow models. The
-files' own sizes are the card's."""
+tracks, a shallow 2^20-bucket table, small banks and narrow models (each
+kind's ``TINY_ARGS``). The files' own sizes are the card's."""
 
 from __future__ import annotations
 
@@ -24,15 +24,20 @@ TRAIN = {
     "traffic": {"batch": 4, "batches": 5, "tracks": 8, "clip_seconds": 2, "trace_steps": 1,
                 "trace_min_seconds": 0.0, "banks": BANKS},
 }
-MODELS = {
-    "unet": {"n_channels": 1, "n_classes": 1, "base": 4, "bilinear": False, "rate": 0.05},
-    "demucs": {"hidden": 16, "depth": 3, "sample_rate": 8000},
-}
 
 
 def overrides(cell: str) -> dict:
-    ov = copy.deepcopy(TRAIN if cell.endswith("train") else IDENTIFY)
-    ov["config"]["model_args"] = MODELS["demucs" if cell.startswith("demucs") else "unet"]
+    """The small sizes of ``cell``: its traffic's driver's, and its
+    configuration's kind's ``TINY_ARGS``."""
+    from portbench import harness as H
+    from portbench import inputs as I
+
+    manifest = H.load_manifest()
+    w = H.find(manifest["workloads"], cell, "workload")
+    cfg = H.read_json(H.find(manifest["configs"], w["config"], "config")["file"])
+    traffic = H.read_json(f"portbench/traffic/{w['traffic']}.json")
+    ov = copy.deepcopy(TRAIN if traffic["driver"] == "train" else IDENTIFY)
+    ov["config"]["model_args"] = dict(I.kind(cfg).TINY_ARGS)
     return ov
 
 
