@@ -22,6 +22,11 @@ from musicfpaugment_torch.afp.audfprint import landmarks as lm
 from musicfpaugment_torch.afp.audfprint.hash_table import HashTable
 from musicfpaugment_torch.afp.audfprint.matcher import locmax
 from musicfpaugment_torch.afp.audfprint.peaks import find_peaks_batch, find_peaks_shifts
+from musicfpaugment_torch.afp.denoising import (
+    SPECTROGRAM_DENOISERS,
+    WAVEFORM_DENOISERS,
+    check_denoising_model,
+)
 from musicfpaugment_torch.augment.constants import WAVEFORM_SAMPLING_RATE
 from musicfpaugment_torch.data.audio_io import read_wav, resample
 from musicfpaugment_torch.device import DeviceLike, resolve_device
@@ -99,21 +104,18 @@ class AudfprintPeaks:
         self.denoising = denoising
         self.denoising_model = denoising_model
         if self.denoising:
-            if self.denoising_model not in ("demucs", "unet"):
-                raise ValueError(
-                    f"denoising_model must be 'demucs' or 'unet', not {denoising_model!r}"
-                )
-            if denoising_model == "unet" and spec_denoiser is None:
-                raise ValueError("unet denoising requires spec_denoiser")
-            if denoising_model == "demucs" and wave_denoiser is None:
-                raise ValueError("demucs denoising requires wave_denoiser")
+            check_denoising_model(denoising_model)
+            if denoising_model in SPECTROGRAM_DENOISERS and spec_denoiser is None:
+                raise ValueError(f"{denoising_model} denoising requires spec_denoiser")
+            if denoising_model in WAVEFORM_DENOISERS and wave_denoiser is None:
+                raise ValueError(f"{denoising_model} denoising requires wave_denoiser")
         self.spec_denoiser = spec_denoiser
         self.wave_denoiser = wave_denoiser
         self.soundfiledur = 0.0
 
     def _spec_hook(self) -> Optional[Callable]:
         """The spectrogram denoiser, if this analyzer denoises with one."""
-        if self.denoising and self.denoising_model == "unet":
+        if self.denoising and self.denoising_model in SPECTROGRAM_DENOISERS:
             return self.spec_denoiser
         return None
 
@@ -121,7 +123,7 @@ class AudfprintPeaks:
         """The batch on the analyzer's device, through the waveform
         denoiser if this analyzer denoises with one."""
         batch = torch.as_tensor(waveforms, dtype=torch.float32, device=self.device)
-        if self.denoising and self.denoising_model == "demucs":
+        if self.denoising and self.denoising_model in WAVEFORM_DENOISERS:
             batch = self.wave_denoiser(batch)
         return batch
 

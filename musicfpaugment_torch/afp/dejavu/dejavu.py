@@ -6,8 +6,8 @@ device (one file at a time, or a batch in one pass with
 hashed with SHA1 on the host and stored in a SQL backend (SQLite by
 default, Postgres on request). :meth:`Dejavu.align_matches`, the
 offset-histogram consensus, is the oracle of the device matcher.
-Denoisers are injected: the UNet as a spectrogram hook, Demucs as a
-waveform hook.
+Denoisers are injected: the UNet as a spectrogram hook, Demucs or HTDemucs
+as a waveform hook (``afp/denoising.py`` names the kinds).
 """
 
 from __future__ import annotations
@@ -43,6 +43,12 @@ from musicfpaugment_torch.afp.dejavu.variables import (
     SONG_NAME,
     TOPN,
 )
+from musicfpaugment_torch.afp.denoising import (
+    DEJAVU_ORDER,
+    SPECTROGRAM_DENOISERS,
+    WAVEFORM_DENOISERS,
+    check_denoising_model,
+)
 from musicfpaugment_torch.data.audio_io import read_wav, resample
 from musicfpaugment_torch.device import DeviceLike, resolve_device
 
@@ -59,11 +65,6 @@ def unique_hash(file_path: str, block_size: int = 2**20) -> str:
     return s.hexdigest().upper()
 
 
-def _check_model(denoising: bool, denoising_model) -> None:
-    if denoising and denoising_model not in ("unet", "demucs"):
-        raise ValueError(f"denoising_model must be 'unet' or 'demucs', got {denoising_model!r}")
-
-
 def read(
     filename: Union[str, np.ndarray],
     denoising: bool = False,
@@ -74,15 +75,16 @@ def read(
     device: DeviceLike = None,
 ) -> Tuple[List[np.ndarray], int, str]:
     """Audio as int16-scaled channels: a pkl, npy or wav file or an array ->
-    mono at ``sample_rate``, times 32767, with Demucs waveform denoising
-    first when ``denoising_model="demucs"``. Returns (channels, sample
-    rate, upper-case content SHA1).
+    mono at ``sample_rate``, times 32767, with waveform denoising first when
+    ``denoising_model`` is a waveform kind ("demucs", "htdemucs"). Returns
+    (channels, sample rate, upper-case content SHA1).
 
-    The Demucs hook gets a (1, T) tensor on ``device`` (its model's) and
+    The waveform hook gets a (1, T) tensor on ``device`` (its model's) and
     its result comes back as numpy. ``int16_scale=False`` returns the raw
     float waveform, so that batched callers can scale after a batched
     denoise and stay bit-identical to this per-file path."""
-    _check_model(denoising, denoising_model)
+    if denoising:
+        check_denoising_model(denoising_model, DEJAVU_ORDER)
     if isinstance(filename, np.ndarray):
         audio = filename.astype(np.float32).reshape(-1)
         file_hash = sha1(audio.tobytes()).hexdigest().upper()
@@ -101,9 +103,9 @@ def read(
             audio = data.mean(axis=0) if data.shape[0] > 1 else data[0]
         file_hash = unique_hash(str(filename))
 
-    if denoising is True and denoising_model == "demucs":
+    if denoising is True and denoising_model in WAVEFORM_DENOISERS:
         if wave_denoiser is None:
-            raise ValueError("demucs denoising requires wave_denoiser")
+            raise ValueError(f"{denoising_model} denoising requires wave_denoiser")
         x = torch.from_numpy(np.ascontiguousarray(audio[None, :])).to(resolve_device(device))
         audio = wave_denoiser(x).detach().to("cpu", torch.float32).numpy()[0]
 
@@ -148,7 +150,8 @@ class Dejavu:
                 self.db = PostgreSQLDatabase(**db_cfg)
             else:
                 self.db = SQLiteDatabase(**db_cfg)
-        _check_model(denoising, denoising_model)
+        if denoising:
+            check_denoising_model(denoising_model, DEJAVU_ORDER)
         self.denoising = denoising
         self.denoising_model = denoising_model
         self.spec_denoiser = spec_denoiser
@@ -167,7 +170,7 @@ class Dejavu:
             self.songhashes_set.add(song["file_sha1"])
 
     def _spec_hook(self) -> Optional[Callable]:
-        if self.denoising and self.denoising_model == "unet":
+        if self.denoising and self.denoising_model in SPECTROGRAM_DENOISERS:
             return self.spec_denoiser
         return None
 

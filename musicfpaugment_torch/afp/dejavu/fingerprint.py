@@ -32,6 +32,11 @@ from musicfpaugment_torch.afp.dejavu.variables import (
     MIN_HASH_TIME_DELTA,
     PEAK_NEIGHBORHOOD_SIZE,
 )
+from musicfpaugment_torch.afp.denoising import (
+    DEJAVU_ORDER,
+    SPECTROGRAM_DENOISERS,
+    check_denoising_model,
+)
 from musicfpaugment_torch.core.stft import frame
 from musicfpaugment_torch.device import DeviceLike, resolve_device
 
@@ -284,12 +289,12 @@ def fingerprint(
     mask as float64 and its normalised PSD spectrogram, as numpy); the
     spectrogram and peaks run on ``device``. ``denoiser`` is the UNet hook,
     used when ``denoising`` with ``denoising_model="unet"``."""
-    if denoising and denoising_model not in ("unet", "demucs"):
-        raise ValueError(f"denoising_model must be 'unet' or 'demucs', got {denoising_model!r}")
+    if denoising:
+        check_denoising_model(denoising_model, DEJAVU_ORDER)
     x = torch.as_tensor(
         np.asarray(channel_samples, np.float32), device=resolve_device(device)
     )[None, :]
-    hook = denoiser if (denoising and denoising_model == "unet") else None
+    hook = denoiser if (denoising and denoising_model in SPECTROGRAM_DENOISERS) else None
     _, mask, specgram = fingerprint_spectrogram_batch(
         x, Fs, wsize, n_hop, amp_min, denoiser=hook
     )

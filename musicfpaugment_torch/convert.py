@@ -12,7 +12,8 @@ back the other way. :func:`unet_denoiser` makes of a :class:`UNet` the
 spectrogram hook that the analyzer and the matcher take.
 :func:`demucs_state_dict_from_flax`, :func:`demucs_state_dict_to_flax` and
 :func:`demucs_denoiser` do the same for a :class:`Demucs` and its waveform
-hook.
+hook; :func:`htdemucs_denoiser` makes the waveform hook of an
+:class:`HTDemucs` (the JAX package has none).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from musicfpaugment_torch.afp.audfprint.hash_table import HashTable
 from musicfpaugment_torch.augment.banks import IRBank, NoiseBank
 from musicfpaugment_torch.device import DeviceLike, resolve_device
 from musicfpaugment_torch.models.demucs import Demucs
+from musicfpaugment_torch.models.htdemucs import HTDemucs
 from musicfpaugment_torch.models.unet import UNet
 from musicfpaugment_torch.utils.profiling import annotate
 
@@ -394,6 +396,27 @@ def demucs_denoiser(model: Demucs) -> Callable[[torch.Tensor], torch.Tensor]:
     denoising_model="demucs", wave_denoiser=...)``."""
     model.eval()
     model.lstm.lstm.flatten_parameters()
+
+    def hook(wave: torch.Tensor) -> torch.Tensor:
+        with annotate("denoiser.forward"), torch.inference_mode():
+            return model(wave).to(torch.float32)
+
+    return hook
+
+
+# ------------------------------------------------------------- HTDemucs
+
+
+def htdemucs_denoiser(model: HTDemucs) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The waveform hook of a one-source, mono ``model``: (B, T) -> (B, T)
+    float32, in ``eval()`` mode under ``torch.inference_mode``, on the
+    device the model is on; the model's forward holds TF32 off in cuDNN and
+    cuBLAS. Give it to ``AudfprintPeaks(..., denoising=True,
+    denoising_model="htdemucs", wave_denoiser=...)``."""
+    if len(model.sources) != 1 or model.audio_channels != 1:
+        raise ValueError(f"an HTDemucs denoiser has one source and one audio channel, not "
+                         f"{len(model.sources)} and {model.audio_channels}")
+    model.eval()
 
     def hook(wave: torch.Tensor) -> torch.Tensor:
         with annotate("denoiser.forward"), torch.inference_mode():

@@ -1,5 +1,5 @@
-"""Device selection for the port's entry points, and the cuDNN precision
-switch.
+"""Device selection for the port's entry points, and the TF32 switches of
+cuDNN and of cuBLAS's float32 matmuls.
 
 Entry points run on the card unless the caller asks for the CPU: ``None``
 means ``"cuda"``, and asking for CUDA where there is none raises instead of
@@ -38,3 +38,17 @@ def cudnn_tf32(allow: bool):
         deterministic=cudnn.deterministic, allow_tf32=allow,
     ):
         yield
+
+
+@contextlib.contextmanager
+def matmul_tf32(allow: bool):
+    """float32 matmuls (cuBLAS, ``torch.backends.cuda.matmul.allow_tf32``)
+    with TF32 allowed or not inside the block, restored on exit.
+    :func:`cudnn_tf32` does not touch this switch."""
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_tf32
+    matmul.allow_tf32 = allow
+    try:
+        yield
+    finally:
+        matmul.allow_tf32 = before

@@ -1,8 +1,11 @@
-"""Denoiser models: the UNet spectrogram denoiser and the Demucs waveform
-denoiser, and Flax's starting weights for both."""
+"""Denoiser models: the UNet spectrogram denoiser, the Demucs and Hybrid
+Transformer Demucs waveform denoisers, and Flax's starting weights for the
+UNet and Demucs."""
 
 from musicfpaugment_torch.models.demucs import BLSTM, Demucs, rescale_params
 from musicfpaugment_torch.models.flax_init import flax_init
+from musicfpaugment_torch.models.htdemucs import HTDemucs
 from musicfpaugment_torch.models.unet import DoubleConv, Down, UNet, Up
 
-__all__ = ["UNet", "DoubleConv", "Down", "Up", "Demucs", "BLSTM", "flax_init", "rescale_params"]
+__all__ = ["UNet", "DoubleConv", "Down", "Up", "Demucs", "BLSTM", "HTDemucs", "flax_init",
+           "rescale_params"]

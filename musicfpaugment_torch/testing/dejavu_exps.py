@@ -28,6 +28,7 @@ import torch
 from musicfpaugment_torch.afp.dejavu import Dejavu, FileRecognizer
 from musicfpaugment_torch.afp.dejavu.dejavu import read as djv_read
 from musicfpaugment_torch.afp.dejavu.fingerprint import fingerprint_spectrogram_batch
+from musicfpaugment_torch.afp.denoising import WAVEFORM_DENOISERS
 from musicfpaugment_torch.device import DeviceLike
 from musicfpaugment_torch.testing.metrics import (
     F1score,
@@ -93,8 +94,8 @@ def _score(gt: str, r1, r2) -> tuple:
 
 def compute_accuracy(audio_paths: List[str], djv: Dejavu, djv2: Dejavu) -> Dict[str, float]:
     """No-denoise / denoise / mix accuracy, one file at a time through
-    :class:`FileRecognizer` (the only path that takes a Demucs arm); the
-    ground truth is each file's stem."""
+    :class:`FileRecognizer` (the only path that takes a waveform denoiser's
+    arm); the ground truth is each file's stem."""
     recognizer1 = FileRecognizer(djv)
     recognizer2 = FileRecognizer(djv2)
     hits = np.zeros(3, np.int64)
@@ -177,9 +178,9 @@ def compute_peaks_metrics(
 def _masks_sgrams(djv: Dejavu, batch: np.ndarray):
     """(B, T) raw waveforms -> (peak masks, PSD spectrograms) on the
     engine's device: ``generate_fingerprints(get_masks=True)`` for a batch,
-    Demucs applied to the raw audio as :func:`read` applies it."""
+    a waveform denoiser applied to the raw audio as :func:`read` applies it."""
     w = torch.as_tensor(batch, dtype=torch.float32, device=djv.device)
-    if djv.denoising and djv.denoising_model == "demucs":
+    if djv.denoising and djv.denoising_model in WAVEFORM_DENOISERS:
         w = djv.wave_denoiser(w)
     st = djv.settings
     _, mask, specgram = fingerprint_spectrogram_batch(
@@ -202,8 +203,8 @@ def compute_peaks_metrics_batched(
     pool, whole batches through the spectrogram and peaks on the engines'
     device, and ``batch_peak_metrics`` / ``batch_psnr`` scoring every
     example at once. Queries are grouped by exact (query, clean) lengths,
-    so each example is computed as it is alone. Demucs denoises the raw
-    audio of a batch, where :func:`read` denoises each file (per file it
+    so each example is computed as it is alone. A waveform denoiser denoises
+    the raw audio of a batch, where :func:`read` denoises each file (per file it
     denoises before any resampling, here after loading: the same whenever
     the queries are at the target rate). Pairs that fail to load print and
     are skipped."""
