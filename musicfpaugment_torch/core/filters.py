@@ -72,7 +72,8 @@ def _direct_conv_valid(padded: torch.Tensor, kernels: torch.Tensor) -> torch.Ten
     """'valid' convolution with a per-example kernel as one grouped
     ``conv1d`` (groups = batch), in full float32: cuDNN stays on and TF32 is
     switched off around the call, since cuDNN convolutions may use it by
-    default.
+    default, and cuDNN's heuristic chooses the engine whatever scope
+    encloses the call (the augmenter's output is held exact).
 
     padded: (B, Tp) or (B, C, Tp); kernels: (B, n). Returns (..., Tp - n + 1).
     """
@@ -85,7 +86,7 @@ def _direct_conv_valid(padded: torch.Tensor, kernels: torch.Tensor) -> torch.Ten
         x = padded.reshape(1, b * c, tp)
         k = k.repeat_interleave(c, dim=0)  # (B*C, 1, n)
         groups = b * c
-    with cudnn_tf32(False):
+    with cudnn_tf32(False, benchmark=False):
         y = F.conv1d(x, k, groups=groups)
     return y[0] if padded.ndim == 2 else y.reshape(padded.shape[:-1] + (-1,))
 

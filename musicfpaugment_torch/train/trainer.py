@@ -20,6 +20,12 @@ Precision: the whole step runs with cuDNN's TF32 off, backward pass
 included, so a model with ``dtype=None`` trains in strict float32; a UNet
 or a Demucs with ``dtype=torch.bfloat16`` computes its body in bfloat16 by
 its own autocast. Parameters and Adam's state stay float32 either way.
+The step's, validation's and the media triplet's convolutions run under
+``device.cudnn_measured``: cuDNN times engines for each convolution problem
+the first time the process meets it and keeps the fastest (on an H100 at
+128 x 257 x 94 spectrograms, the heuristic's FFT tiling made the UNet's
+step twice as long), so the first step of a new clip length pays for that
+timing; the augmenter's filters keep cuDNN's heuristic.
 
 As in the JAX package, an epoch runs exactly ``steps`` steps and averages
 by ``steps``; a resumed run starts at the saved epoch, the last completed
@@ -50,12 +56,12 @@ from torch import nn
 from musicfpaugment_torch.augment.pipeline import AugmentFP
 from musicfpaugment_torch.core import prng
 from musicfpaugment_torch.core.stft import magnitude_spectrogram
-from musicfpaugment_torch.device import DeviceLike, cudnn_tf32, resolve_device
+from musicfpaugment_torch.device import DeviceLike, cudnn_measured, resolve_device
 from musicfpaugment_torch.models import Demucs, UNet, flax_init, rescale_params
 from musicfpaugment_torch.parallel.augment_sharded import shard_draws
 from musicfpaugment_torch.train.losses import l1_loss, multi_resolution_stft_loss, psnr
 from musicfpaugment_torch.train.utils import get_rank, get_world_size, is_dist_avail_and_initialized
-from musicfpaugment_torch.utils.profiling import annotate
+from musicfpaugment_torch.utils.profiling import annotate, count
 
 
 def spectrogram_batch(waveforms: torch.Tensor) -> torch.Tensor:
@@ -231,6 +237,8 @@ class Trainer:
         # each step's key splits into the augmentation's key and dropout's
         self._key = prng.key(seed)
         self.step = 0
+        # the model input shapes of the steps run so far (``trainer.tuned_shapes``)
+        self._step_shapes: set = set()
         self.optimizer = torch.optim.Adam(
             self.model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8
         )
@@ -348,7 +356,12 @@ class Trainer:
                 group["lr"] = self.base_lr * self.scheduler.scale
             self.model.train()
             self.optimizer.zero_grad(set_to_none=True)
-            with cudnn_tf32(False):
+            if aug.shape not in self._step_shapes:
+                # cuDNN times the new shape's convolution problems in this
+                # step, unless another trainer of the process met them first
+                self._step_shapes.add(aug.shape)
+                count("trainer.tuned_shapes")
+            with cudnn_measured():
                 with annotate("trainer.forward"):
                     loss, terms, _, _ = self._loss_terms(clean, aug, self._train_model, (k_drop, lo))
                 with annotate("trainer.backward"):
@@ -422,7 +435,7 @@ class Trainer:
         self.model.eval()
         acc: Dict[str, torch.Tensor] = {}
         for clean, aug in self._val_batches():
-            with cudnn_tf32(False):
+            with cudnn_measured():
                 _, terms, pred, target = self._loss_terms(clean, aug)
             terms["psnr"] = self._psnr(pred, target)
             for k, v in terms.items():
@@ -529,7 +542,7 @@ class Trainer:
         ("audio")."""
         self.model.eval()
         dtype = next(self.model.parameters()).dtype
-        with cudnn_tf32(False):
+        with cudnn_measured():
             if self.input_type == "spec":
                 return aug, self.model(spectrogram_batch(aug).to(dtype))
             return aug, self.model(aug.to(dtype))
