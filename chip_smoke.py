@@ -1,22 +1,21 @@
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+"""Card check of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Drives the audfprint identification path of ``musicfpaugment_torch`` end to
-end on the card, clean and degraded queries, its two denoisers (the UNet on
-spectrograms, Demucs on waveforms) and their training, the Dejavu path (the
-CSR index, the batched matcher, the SQLite oracle, both denoiser arms), then
-the FMA selection indexed and identified from audio files by both systems,
-the parallel layer, monitoring and the app, and last the reference-scale
-proofs of both systems on a 106,574-track corpus and the end-to-end demo,
-through the entry points a user calls:
+Drives the port end to end on the card through the entry points a user
+calls, and fails (exit 1, the reason on standard error) where the card
+disagrees with the CPU, a kernel with its plain version, a path with its
+oracle, or a result with its floor. It times nothing but the kernels of the
+kernel table: the benchmark (``portbench/``, ``BENCHMARK.json``) and the
+ledger (``PERF_LEDGER.jsonl``) hold the rates, times and profiles. Its phases
+and what each checks:
 
-1. device  - the card's name and power limit;
+1. device  - the card's name and power limit (printed);
 2. build   - compiles the CUDA kernels from ``musicfpaugment_torch/csrc``;
 2a. prng   - the threefry functions of ``core/prng.py`` on the card against
              the CPU, 2^20 draws each: ``split``, ``fold_in``, ``uniform``,
              ``randint`` and ``bernoulli`` with 0 mismatching words,
-             ``normal`` within 2 ulp; the card's ms for each;
+             ``normal`` within 2 ulp;
 2b. corpus_card_vs_cpu - 64 tracks of the scale corpus (30 s, seed 1234)
              built on the card and on the CPU: within 1e-5 of the peak;
 3. kernels - each prune kernel against its plain PyTorch version on the same
@@ -24,70 +23,63 @@ through the entry points a user calls:
              batch of 8 s crops; the 512 rows of that batch's 4 stacked
              shifts, 251 and 250 columns; a 64-track ingest batch of
              20-30 s tracks, mixed lengths; a 128-track batch of the
-             reference-scale ingest, 30 s, 938 columns), with times, bounds
-             and mismatch counts, which must be 0;
-3a. flax_init_dropout - the published UNet's starting weights
-             (``flax_init``: Flax's initialisers under ``PRNGKey(0)``) drawn
-             on the card against the CPU (mismatching elements, ulps,
-             seconds); the fused dropout kernel (``csrc/dropout_threefry.cu``)
-             against its plain version at the five sites of the training
-             shape (128 x 3 s, base 64: 203.4M elements), forward and
-             backward, float32 and bfloat16, 0 mismatching elements, with
-             ms, bound, plain ms and ``F.dropout``'s ms; one bfloat16 train
-             step with the kernel and with the plain route (ms each, 10
-             launches a step); a rate-0.05 ``Trainer`` step on the card and
-             on the CPU, each from its own ``flax_init`` (loss within 1e-5);
+             reference-scale ingest, 30 s, 938 columns): 0 mismatching
+             cells; the kernel table's times and bounds;
+3a. flax_init_dropout - the fused dropout kernel
+             (``csrc/dropout_threefry.cu``) against its plain version at the
+             five sites of the training shape (128 x 3 s, base 64: 203.4M
+             elements), forward and backward, float32 and bfloat16: 0
+             mismatching elements (and the kernel table's times); two
+             bfloat16 train steps, 10 launches a step; a rate-0.05
+             ``Trainer`` step on the card and on the CPU, each from its own
+             ``flax_init``: loss within 1e-5;
 3b. hash_stage - the matcher's hashing kernel (``csrc/union_hashes.cu``)
-             against its plain version (``landmarks.union_hashes_plain``, the
-             PyTorch chain the matcher ran before) on the same card masks:
-             the prunes' masks of the 128-query batch in its 4 shifts (251
-             and 250 columns) and of 128 30 s tracks in 4 shifts (938 and
-             937), 0 mismatching rows required; the kernel's ms (CUDA
-             events, 20 calls), its byte bound and the chain's ms;
+             against its plain version (``landmarks.union_hashes_plain``) on
+             the same card masks: the prunes' masks of the 128-query batch
+             in its 4 shifts (251 and 250 columns) and of 128 30 s tracks in
+             4 shifts (938 and 937), both at the matcher's budget of 4,096,
+             and of the first ingest batch (64 mixed-length 20-30 s tracks
+             with their valid lengths, 1 shift) at the budget
+             ``hashes_batch`` gives it, which truncates nothing: one launch
+             a call, 0 mismatching rows (and the kernel table's times and
+             bound);
 4. ingest  - 10,000 synthetic 20-30 s tracks, generated on the card, indexed
-             by ``create_fp_database`` into a full 2^20 x 100 ``HashTable``;
+             by ``create_fp_database`` into a full 2^20 x 100 ``HashTable``
+             holding every track; the hashing kernel once an ingest batch;
 5. match   - ``compute_accuracy_batched`` (batch 128, 4 shifts) over 1,024
-             clean 8 s crops of indexed tracks, which must reach accuracy
-             0.99; 128 crops of tracks never indexed; one batch re-run with
-             the plain prunes on the card, which must give the same verdicts;
+             clean 8 s crops of indexed tracks: accuracy >= 0.99; 128 crops
+             of tracks never indexed; one batch re-run with the plain prunes
+             on the card: the same verdicts, no kernel launched;
 6. banks   - ``dcase_shaped_banks()`` at its defaults (3 h of noise in 15
              scenes, 271 impulse responses), built on the host and put on
              the card;
 7. augment - ``AugmentFP`` with ``freeze_parameters(42)`` and
              ``batch_augment_indexed`` (batch 256) over the same 1,024 clean
-             crops under each of the paper's 10 conditions: examples/s; every
-             output finite with peak 1, a zero input staying zero; one batch
-             of 16 against the same draws on the CPU (at most 1e-5 apart);
-             the achieved SNR of the noise-only conditions' first batch
-             (within 0.2 dB of the drawn one);
-             the chain's variants, its stages and the two convolution routes
-             timed;
+             crops under each of the paper's 10 conditions: every output
+             finite with peak 1, a zero input staying zero; the achieved SNR
+             of the noise-only conditions' first batch within 0.2 dB of the
+             drawn one; one batch of 16 against the same draws on the CPU
+             (at most 1e-5 apart); the filters' direct convolution with
+             cuDNN on;
 7a. queries_card_vs_cpu - the scale proof's first 64 frozen-seed-42
              ``default_parameters`` queries (plan, crops of the corpus,
              augmentation with the phase 6 banks) on the card and on the
              CPU: within 1e-4;
 8. conditions - ``compute_accuracy_batched`` on each condition's augmented
-             queries with the ``DeviceMatcher`` of phase 5: accuracy and
-             queries/s per condition;
-9. profile - one match batch, one ingest batch, one ``batch_augment`` call
-             and one denoised match batch under torch.profiler: wall time,
-             device time, the card's busy share, the top ops;
-10. unet   - ``UNet(1, 1)`` at ``base=64`` with weights from a numpy seed:
-             its parameter and operation counts, and a forward of 128
-             spectrograms of degraded queries in strict float32 (the port's
-             default), with TF32 allowed and with bfloat16 compute: ms,
-             TFLOP/s, peak memory, and how far the two faster ones move the
-             output; the card against the CPU on 2 spectrograms in strict
-             float32 (at most 1e-3 of the largest output);
+             queries with the ``DeviceMatcher`` of phase 5: ``bn_p10`` and
+             ``recording_device`` >= 0.95, ``bn_m10`` no better than
+             ``bn_p10``;
+10. unet   - ``UNet(1, 1)`` at ``base=64`` with weights from a numpy seed on
+             degraded queries' spectrograms in strict float32: finite, and
+             the card within 1e-3 of the largest output from the CPU on 2;
 11. denoised - a ``base=64`` UNet whose weights make it the identity on
              non-negative input as the second analyzer's spectrogram
              denoiser: ``compute_accuracy_batched`` with both analyzers over
              the first 256 clean and the first 256 ``default_parameters``
-             queries (batch 128, 4 shifts), which must return the three
-             accuracies, "With Denoising" within 2/256 of "No Denoising" and
-             "Mix Pipeline" no lower than either less 2/256; one batch's
-             peak masks with and without the hook (equal in >= 0.999 of
-             cells); queries/s of the call and of the denoised arm alone;
+             queries (batch 128, 4 shifts): the three accuracies, "With
+             Denoising" within 2/256 of "No Denoising", "Mix Pipeline" no
+             lower than either less 2/256; one batch's peak masks with and
+             without the hook equal in >= 0.999 of cells;
 12. peaks_metrics - ``compute_peaks_metrics_batched`` over the same 256
              ``default_parameters`` queries against their clean crops, read
              from ``.npy`` files in a temporary directory: eight finite
@@ -107,55 +99,44 @@ through the entry points a user calls:
              lr 1e-3, 2 epochs of 16 steps and 4 validation batches, with
              checkpoints; once in strict float32 and once in bfloat16 from
              Flax's initial weights (the trainer draws them), dropout
-             through the kernel: step ms, examples/s, TFLOP/s, peak
-             memory, the card's busy share over one step, the baseline and
-             per-epoch validation loss and PSNR (the loss must fall from the
-             first epoch to the last, every number be finite); then a
-             resume from the float32 run's
-             ``last_epoch`` that must run one more epoch;
+             through the kernel: every loss and PSNR finite, the validation
+             loss falling from the first epoch to the last; then a resume
+             from the float32 run's ``last_epoch``: its metadata's keys, one
+             more epoch from the saved step, a finite loss;
 15. trained_denoiser - phases 11 and 12 again with the float32 run's best
-             checkpoint as the denoiser, in strict float32, with TF32 allowed
-             and in bfloat16: the three accuracies, queries/s, the peak
-             metrics, and how far the two faster ones move verdicts, peak
-             masks and the denoised F1;
+             checkpoint as the denoiser: the three accuracies, eight finite
+             peak metrics;
 16. demucs - the published ``Demucs()`` (hidden 48, depth 5, x4 resampling,
              causal LSTM of width 768) with seeded weights (PyTorch's
-             initialisation, then ``rescale_params(0.1)``): its parameter
-             and FLOP counts and a forward of 128 degraded 8 s queries in
-             strict float32, with TF32 allowed and in bfloat16 (ms, TFLOP/s,
-             peak memory, how far the two faster ones move the output); the
-             cumulative stage times by ``stop_at``; the card against the CPU
-             on 2 clips (1e-4 of the largest output); its cuDNN LSTM against
-             float64 on the same operands with TF32 off and allowed; the sinc
-             pair's two convolution routes at the forward's lengths;
+             initialisation, then ``rescale_params(0.1)``) on degraded 8 s
+             queries in strict float32: finite, the card within 1e-4 of the
+             largest output from the CPU on 2 clips, its cuDNN LSTM within
+             1e-4 of float64 on the same operands;
 17. demucs_denoised - phase 11 with ``demucs_denoiser`` as the second
              analyzer's waveform hook: the three accuracies over 2 x 256
-             queries and queries/s; the denoised arm alone, its verdicts equal
-             to the plain matcher's on batches denoised beforehand and the
-             hook called once per batch; the eight peak metrics (finite);
-             then one such match batch under torch.profiler;
+             queries; the denoised arm alone, its verdicts equal to the plain
+             matcher's on batches denoised beforehand and the hook called
+             once per batch; the eight peak metrics finite;
 18. demucs_train_step_check - one "audio" step of ``Demucs(hidden=8,
              depth=3)`` card against CPU: loss terms 1e-5 (relative), float64
              gradients 1e-4;
 19. demucs_train - the published Demucs trained as phase 14 (lr 5e-4, the
-             "audio" losses) in strict float32 and in bfloat16;
+             "audio" losses) in strict float32 and in bfloat16: the same
+             loss checks;
 20. demucs_denoised again with the float32 run's best checkpoint;
 21. streamer - ``DemucsStreamer`` over the seeded Demucs, 10 s at 8 kHz
-             frame by frame: delta to the offline forward under 5%, initial
-             lag, time per frame, real-time factor under 1.
+             frame by frame: delta to the offline forward under 5%,
+             real-time factor under 1;
 22. dejavu_ingest - Dejavu at the paper's settings (8 kHz, n_fft 512, hop
              256, fan 3, amp_min 50, neighbourhood 10): the 10,000 tracks,
              each cut to whole seconds and batched by length (256 a batch),
              through ``DejavuDeviceIndex.ingest_arrays``, ``finalize`` and
-             the matcher's upload: tracks/s, rows, bucket depth, rows
-             dropped at the cap of 256, the CSR bytes on the card, the host
-             share (one batch profiled), the crops that reach past their
-             track's cut (< 1 s of their audio is not indexed);
+             the matcher's upload;
 23. dejavu_match - ``recognize_waveforms`` over the 1,024 clean crops in
-             batches of 128 (accuracy >= 0.99) and the 128 unseen crops
-             (NOMATCH rate reported, not held): queries/s;
-24. dejavu_conditions - accuracy and queries/s on phase 7's augmented
-             queries of each condition;
+             batches of 128: accuracy >= 0.99 (the 128 unseen crops' NOMATCH
+             rate is printed, not held);
+24. dejavu_conditions - phase 7's augmented queries of each condition
+             (printed);
 25. dejavu_oracle - 256 tracks and 128 queries (64 clean, 64
              ``default_parameters``): one set of card masks fed to the host
              path (SHA1 hashes, SQLite, ``align_matches``) and to the device
@@ -167,30 +148,30 @@ through the entry points a user calls:
              bit-identical;
 27. dejavu_denoised - the seeded ``base=64`` UNet as a second matcher's
              spectrogram hook through ``compute_accuracy_batched`` over 2 x
-             256 queries (the three accuracies, queries/s; card against CPU
-             on 16 queries, masks >= 0.999 of cells), and the seeded
-             published Demucs through the per-file ``compute_accuracy`` on
-             32 of phase 25's queries over its SQLite corpus;
+             256 queries (the three accuracies; card against CPU on 16
+             queries, masks >= 0.999 of cells), and the seeded published
+             Demucs through the per-file ``compute_accuracy`` on 32 of phase
+             25's queries over its SQLite corpus (the three accuracies);
 28. dejavu_peaks_metrics - ``compute_peaks_metrics_batched`` over phase
-             12's 256 ``.npy`` pairs with each arm: queries/s;
-29. profile - one Dejavu ``match_waveforms`` batch of 128 under
-             torch.profiler. The Dejavu path reaches no prune kernel: the
-             launch counts must not move across phases 22-29.
-30. native_io - the g++ build of ``native/*.cc``, whether libmpg123 and
-             libmp3lame load, the codec's rate over the FMA tree's files and
-             ``read_wav_batch``'s decode rate over them;
+             12's 256 ``.npy`` pairs with each arm: eight finite numbers.
+             The Dejavu path reaches no prune kernel: the launch counts
+             must not move across phases 22-28.
+30. native_io - the g++ build of ``native/*.cc`` must build and load;
+             whether libmpg123 and libmp3lame load (printed);
 31. fma_eval - an FMA tree in a temporary directory: ``tracks.csv`` in
              FMA's layout (16 genres x 512 tracks of 30 s), every track's
              path as the path list, and the first 256 selected tracks written
              as 30 s synthetic files at 22.05 kHz (mp3; WAV where a codec is
-             missing); then through the entry points the preprocessing
-             ``main``, ``audfprint_exps.main(["--action", "index"])`` into a
-             full 2^20 x 100 table, ``dejavu_exps.main(["--action",
-             "index"])`` into SQLite, ``generate_queries.main(["--queries",
-             "cleans", "--save"])`` (absent files skipped), and the saved
-             clean queries identified by both systems (accuracy >= 0.99);
-             index and identification rates, the decode share; prune
-             counters zeroed before the index and the identification;
+             missing; the selection must keep all but the six exceptions,
+             ``read_wav_batch`` must decode every file); then through the
+             entry points the preprocessing ``main``, ``audfprint_exps.main(
+             ["--action", "index"])`` into a full 2^20 x 100 table,
+             ``dejavu_exps.main(["--action", "index"])`` into SQLite (no
+             prune launch), ``generate_queries.main(["--queries", "cleans",
+             "--save"])`` (absent files skipped): every file indexed by both
+             systems and queried, the saved clean queries identified by both
+             (accuracy >= 0.99); prune and hashing counters zeroed before the
+             index and the identification, each kernel launched in each;
 32. parallel - an NCCL group of world size 1: the published UNet trained 3
              steps with and without ``DistributedDataParallel`` from one seed
              (losses within 1e-6), ``ShardedAugmenter`` over ``[cuda:0,
@@ -198,68 +179,67 @@ through the entry points a user calls:
              on that mesh against one card (256 queries): bit for bit;
 33. monitoring - the train phase's float32 checkpoint resumed with
              ``monitoring``: ``_log_tensorboard`` and ``_log_media`` through a
-             ``SummaryWriter`` (a recording writer without tensorboard), the
-             CQT loss at 128 x 3 s (card against CPU 1e-5) and
-             ``generate_audios.main`` on the checkpoint;
+             ``SummaryWriter`` (a recording writer without tensorboard; nine
+             finite images at most 1, three scalars or more), the CQT loss at
+             128 x 3 s (finite; card against CPU 1e-5) and
+             ``generate_audios.main`` on the checkpoint (its wavs written);
 34. app     - the demo app's ``define_model`` with a stand-in panel and
-             ``process_audio`` of 4 x 8 s at 16 kHz on the card;
+             ``process_audio`` of 4 x 8 s at 16 kHz on the card: four wavs
+             at 16 kHz, finite, peak <= 1;
 35. scale_ingest - ``testing/scale_proof``'s ``ingest`` stage over 106,574
              storage-free 30 s tracks (FMA-large's size, generated on the
              card) into a full 2^20 x 100 table, in two invocations (the
              first stopped by ``--minutes``, the second resuming from the
-             saved table and state): tracks/s and every statistic the stage
-             writes (the table must saturate); one batch profiled, the host
-             store included;
+             saved table and state): done, the table saturated, no track
+             overflowing;
 36. scale_match - its ``match`` stage, 512 queries x 11 conditions, 4
-             shifts, ``--banks dcase`` (clean accuracy >= 0.99): accuracy and
-             queries/s per condition, ``eff_depth``, table MB, upload s; then
+             shifts, ``--banks dcase`` (clean accuracy >= 0.99); then
              ``train`` cut to 2 epochs x 4 steps and the UNet arm with the mix
-             rule over 128 queries of ``cleans`` and ``default_parameters``,
-             and the same for Demucs over 128 queries of ``bn_m10``;
+             rule over 128 queries of ``cleans`` and ``default_parameters``
+             (clean mix accuracy >= 0.99), and the same for Demucs over 128
+             queries of ``bn_m10``: each arm's accuracies in [0, 1];
 37. scale_oracle - its ``oracle`` stage, 32 queries at 4 shifts: 32/32;
-38. scale_peaks - its ``peaks`` stage over 256 queries of each condition,
-             then its ``report``;
+38. scale_peaks - its ``peaks`` stage over 256 queries of each condition
+             (finite), then its ``report``;
 39-41. dejavu_scale_ingest / _match / _oracle - ``testing/dejavu_scale`` on
-             the same corpus at the hash cap 1,024: rows, depth, index MB,
-             ``finalize_s`` (one load and finalize, whose CSR the match, the
-             UNet arm and the oracle share); 512 queries x 11 conditions
-             (clean >= 0.99) and the UNet arm over 128; the Python
-             ``align_matches`` oracle 32/32; no prune launch;
+             the same corpus at the hash cap 1,024 (one load and finalize,
+             whose CSR the match, the UNet arm and the oracle share): 512
+             queries x 11 conditions (clean >= 0.99) and the UNet arm over
+             128; the Python ``align_matches`` oracle 32/32; no prune launch;
 41a. cap_sweep - ``testing/dejavu_cap_sweep``: a 10,000-track ingest with
              no cap, re-finalized under the caps 64, 1,024 and none, 512
-             queries x ``cleans,default_parameters`` under each: the CSR
-             figures, accuracy and queries/s per cap (rows dropped falling
-             with the cap, none uncapped, uncapped clean accuracy >= 0.99);
+             queries x ``cleans,default_parameters`` under each: rows dropped
+             falling with the cap, none uncapped, uncapped clean accuracy
+             >= 0.99;
 42. full_pipeline_demo - ``testing/full_pipeline_demo`` at its quick size
-             (16 tracks, 2 epochs, 16 queries): the three accuracies and the
-             peak F1 per condition;
+             (16 tracks, 2 epochs, 16 queries): clean accuracy >= 0.99;
 44. big_bank - ``train/big_bank_train``: the base=8 UNet step, batch 32 x 3 s,
-             with a 256 MB noise bank against the 32-row toy bank: median
-             step ms, peak memory, MB allocated per step (the big bank's
-             within a tenth of its size of the toy bank's: it is not copied
-             per step) and the bank's storage unmoved.
+             with a 256 MB noise bank against the 32-row toy bank: the big
+             bank's MB allocated per step within a tenth of its size of the
+             toy bank's (it is not copied per step).
 
-Every phase prints a JSON line. Launch counters are zeroed just before
-ingest and read after match: both prune kernels must have launched in each
-(once per ingest batch, once per match batch whatever the number of shifts).
-The dropout kernel's counter is zeroed just before and read just after each
-path that trains a UNet (phase 14's training, the parallel phase's steps,
-the scale proof's UNet ``train`` stage, the demo, the big-bank step): it
-must have launched in each. The prune counters are zeroed again before the augmented conditions, before the denoised
-accuracies, before the peak metrics, before the trained-denoiser runs,
-before each Demucs-denoised run, before the FMA index, before the FMA
-identification, before the mesh match and before each scale path (the
-ingest's two invocations, the match, each denoised arm, the oracle, the
-peaks, the demo), and read after each. The hashing kernel's counter is
-zeroed before the match (after the ingest, which hashes with its own
-chain), the conditions, the denoised accuracies, the trained-denoiser runs,
-each Demucs-denoised run, the FMA identification, the mesh match and each
-scale path, and read after those that identify: it must read one launch a
-``match_waveforms`` call a device where the calls are counted here (match,
-conditions, denoised, trained denoiser, Demucs, mesh), and above 0 in the
-FMA identification and the scale match and denoised arms.
+Every phase prints a JSON line. Launch counters: the prune counters are
+zeroed just before the ingest and read after the match: both prune kernels
+must have launched in each (once per ingest batch, once per match batch
+whatever the number of shifts). They are zeroed again before the augmented
+conditions, the denoised accuracies, the peak metrics, the trained-denoiser
+runs, each Demucs-denoised run, the FMA index, the FMA identification, the
+mesh match and each scale path (the ingest's two invocations, the match,
+each denoised arm, the oracle, the peaks, the demo), and read after each:
+each kernel must have launched. The dropout kernel's counter is zeroed just
+before and read just after each path that trains a UNet (phase 14's
+training, the parallel phase's steps, the scale proof's UNet ``train``
+stage, the demo, the big-bank step): it must have launched in each. The
+hashing kernel's counter is zeroed before the ingest, the match, the
+conditions, the denoised accuracies, the trained-denoiser runs, each
+Demucs-denoised run, the FMA index, the FMA identification, the mesh match
+and each scale path, and read after those that hash: it must read one
+launch an ingest batch (ingest) or a ``match_waveforms`` call a device
+where the calls are counted here (match, conditions, denoised, trained
+denoiser, Demucs, mesh), and above 0 in the FMA index and identification
+and the scale match and denoised arms.
 The line before the last is the kernel table, the last line is
-``{"ok": true, "device": {...}}``. Any failure exits non-zero.
+``{"ok": true, "device": {...}}``.
 
 In the kernel table ``ms``, ``plain_ms`` and ``bound_ms`` are those of the
 shape the match path launches (512 stacked rows), ``ms`` the launch on the
@@ -268,7 +248,8 @@ wrapper with its transposed copies; ``query_*``, ``ingest_*`` and
 ``scale_ingest_*`` are the same readings at the other three shapes.
 The ``union_hashes`` entry's ``ms``, ``bound_ms`` and ``library_ms`` (the
 PyTorch chain, which is also its plain version) are phase 3b's at the query
-shape, ``long_30s_*`` at 30 s, and ``launches_*`` the counts above.
+shape, ``long_30s_*`` at 30 s, ``ingest_*`` at the ingest batch, and
+``launches_*`` the counts above.
 """
 
 from __future__ import annotations
@@ -285,7 +266,6 @@ import os
 import subprocess
 import sys
 import tempfile
-import time
 
 import numpy as np
 import torch
@@ -313,11 +293,8 @@ from musicfpaugment_torch.afp.dejavu.fingerprint import peaks_from_mask
 from musicfpaugment_torch.afp.dejavu.matcher_device import _dejavu_match_impl as dj_match_impl
 from musicfpaugment_torch.apps import streamlit_app
 from musicfpaugment_torch.augment import AugmentFP, dcase_shaped_banks
-from musicfpaugment_torch.augment import transforms as T
 from musicfpaugment_torch.convert import demucs_denoiser, unet_denoiser
 from musicfpaugment_torch.core import filters, prng
-from musicfpaugment_torch.core import resample as RS
-from musicfpaugment_torch.core.convolve import fft_convolve
 from musicfpaugment_torch.data import mp3_encode, native
 from musicfpaugment_torch.data.synthetic import (
     synth_tracks_device,
@@ -325,9 +302,8 @@ from musicfpaugment_torch.data.synthetic import (
     write_fma_tracks_csv,
 )
 from musicfpaugment_torch.device import cudnn_tf32
-from musicfpaugment_torch.models import Demucs, UNet, flax_init, rescale_params
+from musicfpaugment_torch.models import Demucs, UNet, rescale_params
 from musicfpaugment_torch.models import dropout as DROP
-from musicfpaugment_torch.models.demucs import STOP_AT
 from musicfpaugment_torch.models.streamer import DemucsStreamer
 from musicfpaugment_torch.parallel import ShardedAugmenter, init_multihost
 from musicfpaugment_torch.testing import audfprint_exps, fma_preprocessing, generate_queries
@@ -351,7 +327,6 @@ from musicfpaugment_torch.testing.parameters import (
 from musicfpaugment_torch.train import big_bank_train, cqt, generate_audios
 from musicfpaugment_torch.train import parameters as TP
 from musicfpaugment_torch.train.trainer import EarlyStopping, ReduceLROnPlateau, Trainer
-from musicfpaugment_torch.utils import StageTimer
 
 SR = 8000
 N_TRACKS = 10_000
@@ -415,13 +390,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
 
-START = time.perf_counter()
-
-
 def emit(obj) -> None:
-    """One JSON line; phase lines carry ``at_s``, the script's clock."""
-    if isinstance(obj, dict) and "phase" in obj:
-        obj = {**obj, "at_s": round(time.perf_counter() - START, 1)}
+    """One JSON line."""
     print(json.dumps(obj), flush=True)
 
 
@@ -442,12 +412,6 @@ def gpu_ms(fn, reps: int) -> float:
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / reps
-
-
-def _timed(fn):
-    """(fn(), its seconds)."""
-    t0 = time.perf_counter()
-    return fn(), time.perf_counter() - t0
 
 
 def track_lengths(n: int, seed: int) -> np.ndarray:
@@ -493,13 +457,11 @@ def bound(bytes_, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_kernels(name, x, vf, sm_mhz):
+def check_kernels(name, x, vf):
     """Kernel vs plain on the same card tensors at one path shape: 0
     mismatching cells required. ``ms`` times the (B, F, C) wrapper (the
     transposed copies and the launch), ``kernel_ms`` the launch alone on the
-    time-major tensors, as the path calls it, ``step_cycles_at_max_clock``
-    that launch per column of the longest row, reckoned at the card's maximum
-    SM clock (the clock the run had is not read)."""
+    time-major tensors, as the path calls it."""
     a_dec = P.prune_decay(20.0, 256)
     fk = K.forward_prune_cuda(x, a_dec)
     fp = P.forward_prune(x, a_dec, 30.0, 5)
@@ -510,7 +472,6 @@ def check_kernels(name, x, vf, sm_mhz):
     bk_tm = K.backward_prune_tm(tm, fk_tm, a_dec, 30.0, 5, vf)
     torch.cuda.synchronize()
     (fb, fo), (bb, bo) = prune_work(x, fp, bp, vf)
-    steps = x.shape[2] if vf is None else int(vf.max())
     out = {}
     for kname, got, got_tm, want, kfn, tmfn, pfn, nbytes, nops in (
         ("forward_prune", fk, fk_tm, fp,
@@ -524,16 +485,10 @@ def check_kernels(name, x, vf, sm_mhz):
     ):
         mism = int((got != want).sum()) + int((K.as_bool_masks(got_tm) != want).sum())
         b_ms, b_by = bound(nbytes, nops)
-        kernel_ms = gpu_ms(tmfn, 20)
         out[kname] = {
             "shape": name, "B": x.shape[0], "F": x.shape[1], "C": x.shape[2],
-            "mismatch": mism,
-            "max_abs_err": float((got.float() - want.float()).abs().max()),
-            "peaks": int(want.sum()),
-            "ms": gpu_ms(kfn, 20), "kernel_ms": kernel_ms,
-            "step_cycles_at_max_clock": kernel_ms * 1e-3 * sm_mhz * 1e6 / steps,
-            "plain_ms": gpu_ms(pfn, 2),
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": nops,
+            "mismatch": mism, "ms": gpu_ms(kfn, 20), "kernel_ms": gpu_ms(tmfn, 20),
+            "plain_ms": gpu_ms(pfn, 2), "bound_ms": b_ms, "bound_by": b_by,
         }
         if mism:
             fail(f"{kname} at the {name} shape disagrees with its plain version "
@@ -541,21 +496,26 @@ def check_kernels(name, x, vf, sm_mhz):
     return out
 
 
-def hash_stage_check(dev, waves_by_shape: dict) -> dict:
+def hash_stage_check(dev, shapes: dict) -> dict:
     """The hashing kernel against the plain chain on the same card masks at
-    each shape (``{name: (B, T) waveforms}``, 4 shifts each): 0 mismatching
-    rows required. ``bound_ms`` is the masks' bytes read once and the
-    output's written once at the card's byte rate; ``library_ms`` the plain
-    chain (PyTorch ops) on the card."""
+    each shape (``{name: (waves, shifts, budget, valid_samples)}``; a budget
+    of None is the one ``hashes_batch`` gives, which truncates nothing): 0
+    mismatching rows required. ``bound_ms`` is the masks' bytes read once
+    and the output's written once at the card's byte rate; ``library_ms``
+    the plain chain (PyTorch ops) on the card."""
     from musicfpaugment_torch.afp.audfprint import landmarks as lm
 
     out = {}
-    for name, waves in waves_by_shape.items():
-        masks = P.find_peaks_shifts(waves, SHIFTS)
+    for name, (waves, shifts, budget, valid_samples) in shapes.items():
+        vsamp = None
+        if valid_samples is not None:
+            vsamp = torch.as_tensor(np.asarray(valid_samples, np.int32), device=dev)
+        masks = P.find_peaks_shifts(waves, shifts, valid_samples=vsamp)
         cols = [int(m.shape[-1]) for m in masks]
         B, F = int(masks[0].shape[0]), int(masks[0].shape[1])
         max_peaks = [lm.shift_max_peaks(c, 5) for c in cols]
-        budget = 4096  # match_waveforms' max_query_hashes
+        if budget is None:
+            budget = lm.MAXPAIRSPERPEAK * sum(max_peaks)
         launches = HC.LAUNCHES["union_hashes"]
         got = lm.union_hashes(masks, 5, budget)
         want = lm.union_hashes_plain(masks, 5, budget)
@@ -567,8 +527,8 @@ def hash_stage_check(dev, waves_by_shape: dict) -> dict:
         out_len = int(got[0].shape[1])
         nbytes = B * sum(cols) * F + 2 * B * out_len * 4 + B * 8
         out[name] = {
-            "B": B, "F": F, "cols": cols, "out_len": out_len,
-            "mismatch_rows": mism, "mean_hashes": float(want[2].float().mean()),
+            "B": B, "F": F, "shifts": shifts, "cols": cols, "out_len": out_len,
+            "mismatch_rows": mism,
             "kernel_ms": gpu_ms(lambda: HC.union_hashes_cuda(masks, max_peaks, budget), 20),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
             "library_ms": gpu_ms(lambda: lm.union_hashes_plain(masks, 5, budget), 20),
@@ -625,41 +585,15 @@ def unet_site_shapes(dev, batch: int, spec: tuple) -> list:
 
 
 def flax_init_dropout_phase(dev) -> dict:
-    """Phase 3a: Flax's starting weights and dropout draws on the card.
-
-    The published UNet's starting weights drawn on the card against the
-    CPU's (``flax_init``: mismatching elements, largest distance in ulps,
-    seconds each); the fused dropout kernel against its plain version on
-    the same card tensors at the training shape (128 x 3 s, base 64: the
-    five sites, 203.4M elements a step), forward and backward, in float32
-    and bfloat16: 0 mismatching elements; its ms, bound, the plain
-    version's ms and ``F.dropout``'s (torch's Philox masks: a yardstick,
-    other draws); one bfloat16 train step with the kernel and with the
-    plain route, ms each, and the kernel's launches per step; one
+    """Phase 3a: the fused dropout kernel against its plain version on the
+    same card tensors at the training shape (128 x 3 s, base 64: the five
+    sites, 203.4M elements a step), forward and backward, in float32 and
+    bfloat16: 0 mismatching elements; its ms, bound, the plain version's ms
+    and ``F.dropout``'s (torch's Philox masks: a yardstick, other draws) for
+    the kernel table; two bfloat16 train steps, 10 launches a step; one
     strict float32 ``Trainer`` step at rate 0.05 on the card and on the
     CPU, each from its own ``flax_init``: loss within 1e-5."""
-    t0 = time.perf_counter()
     line = {"phase": "flax_init_dropout", "rate": DROP_RATE}
-    # -- the starting weights: card against CPU
-    t = time.perf_counter()
-    on_card = flax_init(UNet(1, 1, base=64).to(dev))
-    torch.cuda.synchronize()
-    card_s = time.perf_counter() - t
-    t = time.perf_counter()
-    on_cpu = flax_init(UNet(1, 1, base=64))
-    cpu_s = time.perf_counter() - t
-    mism, ulps, n = 0, 0.0, 0
-    for k, want in on_cpu.state_dict().items():
-        got = on_card.state_dict()[k].cpu()
-        n += want.numel()
-        if want.is_floating_point():
-            mism += int((_bits(got) != _bits(want)).sum())
-            ulps = max(ulps, _ulps(got.numpy(), want.numpy()))
-        else:
-            mism += int((got != want).sum())
-    line["init"] = {"model": "UNet(1, 1, base=64)", "elements": n, "card_s": card_s, "cpu_s": cpu_s,
-                    "mismatching_elements": mism, "max_ulps": ulps}
-    del on_card, on_cpu
     # -- the kernel against its plain version at the five sites
     spec = (257, 1 + TRAIN_SAMPLES // 256)
     sites = unet_site_shapes(dev, TP.BATCH_SIZE, spec)
@@ -667,7 +601,7 @@ def flax_init_dropout_phase(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(7)
     per_dtype = {}
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        rows, totals = [], {"ms": 0.0, "plain_ms": 0.0, "torch_dropout_ms": 0.0, "bytes": 0, "ops": 0}
+        totals = {"ms": 0.0, "plain_ms": 0.0, "torch_dropout_ms": 0.0, "bytes": 0, "ops": 0}
         for i, shape in enumerate(sites):
             key = prng.flax_fold(k_drop, f"Dropout_{i}", 1)
             x = torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -680,34 +614,22 @@ def flax_init_dropout_phase(dev) -> dict:
             torch.cuda.synchronize()
             fwd_mism = int((_bits(yk.detach()) != _bits(yp.detach())).sum())
             bwd_mism = int((_bits(xk.grad) != _bits(xp.grad)).sum())
-            err = max(float((yk.detach().float() - yp.detach().float()).abs().max()),
-                      float((xk.grad.float() - xp.grad.float()).abs().max()))
-            kept = float((yp.detach() != 0).float().mean())
             del xk, xp, yk, yp, g
-            nbytes = 2 * x.numel() * x.element_size()
-            nops = DROP_OPS_PER_ELEMENT * x.numel()
-            b_ms, b_by = bound(nbytes, nops)
-            row = {"site": f"Dropout_{i}", "shape": list(shape), "elements": x.numel(),
-                   "forward_mismatch": fwd_mism, "backward_mismatch": bwd_mism, "max_abs_err": err,
-                   "kept_share": kept,
-                   "ms": gpu_ms(lambda: DROP.dropout_cuda(x, key, DROP_RATE), 20),
-                   "plain_ms": gpu_ms(lambda: DROP.dropout_plain(x, key, DROP_RATE), 2),
-                   "torch_dropout_ms": gpu_ms(lambda: torch.nn.functional.dropout(x, DROP_RATE), 20),
-                   "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": nops}
-            rows.append(row)
-            for k in totals:
-                totals[k] += row[k]
+            totals["bytes"] += 2 * x.numel() * x.element_size()
+            totals["ops"] += DROP_OPS_PER_ELEMENT * x.numel()
+            totals["ms"] += gpu_ms(lambda: DROP.dropout_cuda(x, key, DROP_RATE), 20)
+            totals["plain_ms"] += gpu_ms(lambda: DROP.dropout_plain(x, key, DROP_RATE), 2)
+            totals["torch_dropout_ms"] += gpu_ms(
+                lambda: torch.nn.functional.dropout(x, DROP_RATE), 20)
             del x
             torch.cuda.empty_cache()
             if fwd_mism or bwd_mism:
-                fail(f"dropout_threefry {dname} at {row['site']} {list(shape)}: {fwd_mism} forward "
+                fail(f"dropout_threefry {dname} at Dropout_{i} {list(shape)}: {fwd_mism} forward "
                      f"and {bwd_mism} backward elements differ from the plain version")
         totals["bound_ms"], totals["bound_by"] = bound(totals["bytes"], totals["ops"])
-        per_dtype[dname] = {"sites": rows, "step_forward": totals,
-                            "elements": sum(r["elements"] for r in rows),
-                            "max_abs_err": max(r["max_abs_err"] for r in rows)}
-    line["kernel"] = per_dtype
-    # -- one bfloat16 train step with the kernel and with the plain route
+        per_dtype[dname] = totals
+    line["step_forward"] = per_dtype
+    # -- two bfloat16 train steps with the kernel: 10 launches a step
     clean = next(synthetic_clean_batches(TP.BATCH_SIZE, TRAIN_SAMPLES, SR, seed=UNET_SEED))
     aug = (0.7 * clean + 0.2 * np.random.default_rng(UNET_SEED).standard_normal(clean.shape)).astype(
         np.float32)
@@ -715,36 +637,17 @@ def flax_init_dropout_phase(dev) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         trainer = Trainer(UNet(1, 1, rate=DROP_RATE, base=64, dtype=torch.bfloat16), iter(()), 1,
                           iter(()), 1, TRAIN_LR, 2, tmp, input_type="spec", device=dev)
-    fused = DROP.dropout
-
-    def plain_route(x, key, rate, batch_offset=0):
-        return DROP.dropout_plain(x, key, rate, batch_offset)
-
-    times = {"kernel": [], "plain": []}
+    steps = 2
     DROP.reset_launch_counts()
-    for route in ("kernel", "plain", "kernel", "plain", "plain", "kernel", "plain", "kernel"):
-        DROP.dropout = fused if route == "kernel" else plain_route
-        try:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            trainer.train_step(clean_t, aug_t)
-            torch.cuda.synchronize()
-            times[route].append((time.perf_counter() - t) * 1e3)
-        finally:
-            DROP.dropout = fused
+    for _ in range(steps):
+        trainer.train_step(clean_t, aug_t)
+    torch.cuda.synchronize()
     launches = DROP.LAUNCHES["dropout_threefry"]
     del trainer
     torch.cuda.empty_cache()
-    kernel_steps = len(times["kernel"])
-    line["bf16_step"] = {
-        "model": "UNet(1, 1, rate=0.05, base=64, dtype=bfloat16)", "batch": TP.BATCH_SIZE,
-        "samples": TRAIN_SAMPLES,
-        "kernel_ms": float(np.median(times["kernel"][1:])), "plain_ms": float(np.median(times["plain"][1:])),
-        "kernel_ms_all": times["kernel"], "plain_ms_all": times["plain"],
-        "launches_per_step": launches / kernel_steps,
-    }
-    if launches != 10 * kernel_steps:
-        fail(f"dropout_threefry launched {launches} times in {kernel_steps} steps, not 10 a step")
+    line["launches_per_train_step"] = launches / steps
+    if launches != 10 * steps:
+        fail(f"dropout_threefry launched {launches} times in {steps} steps, not 10 a step")
     # -- a Trainer step at rate 0.05, card against CPU, each from its own init
     small = next(synthetic_clean_batches(8, TRAIN_SAMPLES, SR, seed=UNET_SEED))
     small_aug = (0.7 * small + 0.2 * np.random.default_rng(1).standard_normal(small.shape)).astype(
@@ -757,43 +660,25 @@ def flax_init_dropout_phase(dev) -> dict:
         losses[label] = float(trainer.train_step(torch.from_numpy(small).to(device),
                                                  torch.from_numpy(small_aug).to(device))["loss"])
     rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
-    line["trainer_step_card_vs_cpu"] = {"base": DROP_STEP_CPU_BASE, "batch": 8, "loss_cpu": losses["cpu"],
-                                        "loss_card": losses["card"], "loss_rel": rel}
-    line["seconds"] = time.perf_counter() - t0
+    line["trainer_step_loss_rel"] = rel
     emit(line)
     if not rel <= MAX_STEP_LOSS_REL:
         fail(f"a rate-0.05 Trainer step on the card is {rel} (relative) from the CPU's")
     return line
 
 
-def wall_ms(fn, reps: int) -> float:
-    """Mean ms per call on the host's clock, synchronised, after one
-    warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / reps
-
-
 def augment_condition(fp, clean):
     """``clean`` (N, T) through ``fp``'s frozen-seed chain in batches of
-    AUGMENT_BATCH, example i under index i. Returns (outputs, seconds)."""
+    AUGMENT_BATCH, example i under index i."""
     fp.freeze_parameters(AUGMENT_SEED)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = torch.cat([
+    return torch.cat([
         fp.batch_augment_indexed(clean[s : s + AUGMENT_BATCH],
                                  range(s, min(s + AUGMENT_BATCH, len(clean))))
         for s in range(0, len(clean), AUGMENT_BATCH)
     ])
-    torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
 
 
-def check_augmented(name, fp, clean, out):
+def check_augmented(name, fp, clean, out) -> None:
     """Finite, every row's peak 1 within 1e-6, a zero input staying zero."""
     if out.shape != clean.shape or not bool(torch.isfinite(out).all()):
         fail(f"{name}: augmented queries of shape {tuple(out.shape)} or not finite")
@@ -803,14 +688,14 @@ def check_augmented(name, fp, clean, out):
     pair = torch.stack([clean[0], torch.zeros_like(clean[0])])
     if float(fp.batch_augment_indexed(pair, [0, len(clean)])[1].abs().max()) != 0.0:
         fail(f"{name}: an all-zero input did not stay zero")
-    return peak_err
 
 
-def achieved_snr(fp, clean, out) -> dict:
+def snr_error_db(fp, clean, out) -> float:
     """A noise-only condition on the card: ``out`` is a * clean + b * noise
     with the noise crop that the same draws name, so least squares on the
     pair gives the two gains and 20 log10(rms(a clean) / rms(b noise)) is
-    the SNR that the mix reached, beside the one drawn."""
+    the SNR that the mix reached. Returns its largest distance in dB from
+    the one drawn."""
     n = clean.shape[0]
     draws = fp.draw_indexed(range(n), clean.shape[-1], prng.key(AUGMENT_SEED))[2]
     noise = fp.noise_bank.crop(
@@ -821,39 +706,13 @@ def achieved_snr(fp, clean, out) -> dict:
     det = xx * nn - xn * xn
     a, b = (yx * nn - yn * xn) / det, (yn * xx - yx * xn) / det
     reached = 10 * torch.log10(a * a * xx / (b * b * nn))
-    drawn = draws["snr_db"].to(reached)
-    return {"drawn_db": float(drawn[0]), "reached_db_min": float(reached.min()),
-            "reached_db_max": float(reached.max()),
-            "max_err_db": float((reached - drawn).abs().max())}
+    return float((reached - draws["snr_db"].to(reached)).abs().max())
 
 
-def stage_times(fp, x) -> dict:
-    """Device ms of each stage of ``fp``'s chain on one batch, stage by
-    stage on the output of the stage before, and of the two fused pairs."""
-    draws = fp.draw(x.shape[0], x.shape[-1], prng.key(1))
-    tfms = fp.pipeline.transforms
-    banks = {"noise_bank": fp.noise_bank, "ir_bank": fp.ir_bank}
-    out, inputs = {}, [x]
-    for i, t in enumerate(tfms):
-        inputs.append(t.apply(inputs[i], draws[i], fp.sample_rate, **banks))
-        out[f"{i}_{type(t).__name__}"] = gpu_ms(
-            lambda: t.apply(inputs[i], draws[i], fp.sample_rate, **banks), 5)
-    out["fused_0_1_highpass_ir"] = gpu_ms(
-        lambda: T.fused_highpass_ir(x, draws[0], draws[1], tfms[0], fp.ir_bank), 5)
-    out["fused_5_6_lowpass_highpass"] = gpu_ms(
-        lambda: T.fused_lowpass_highpass(inputs[5], draws[5], draws[6], tfms[5], tfms[6]), 5)
-    out["draw_host_ms"] = wall_ms(lambda: fp.draw(x.shape[0], x.shape[-1]), 5)
-    out["draw_indexed_host_ms"] = wall_ms(
-        lambda: fp.draw_indexed(range(x.shape[0]), x.shape[-1], prng.key(AUGMENT_SEED)), 5)
-    return out
-
-
-def conv_routes(dev) -> dict:
-    """Direct grouped convolution (cuDNN on, TF32 off, as the port runs it)
-    against the FFT route at (256, 64000) with 33 to 513 taps: ms of each,
-    their difference, and what TF32 would change on the direct route (its ms
-    and its error against float64). ``cudnn_enabled`` is read inside the
-    direct route's call."""
+def check_conv_route(dev) -> None:
+    """The filters' direct grouped convolution at (256, 64000) with 33 to
+    513 taps must run with cuDNN on (``cudnn_enabled`` read inside the
+    call)."""
     g = torch.Generator().manual_seed(3)
     x = torch.randn((AUGMENT_BATCH, QUERY_SECONDS * SR), generator=g).to(dev)
     seen = []
@@ -863,37 +722,16 @@ def conv_routes(dev) -> dict:
         seen.append(torch.backends.cudnn.enabled)
         return conv1d(*args, **kwargs)
 
-    out = {}
-    for half in (16, 64, 128, 256):
-        taps = 2 * half + 1
+    halves = (16, 64, 128, 256)
+    for half in halves:
         kernels = filters.lowpass_kernels(torch.linspace(0.05, 0.45, AUGMENT_BATCH).to(dev), half)
-        padded = filters._edge_pad(x, half)
         filters.F.conv1d = spy
         try:
-            direct = filters._direct_conv_valid(padded, kernels)
+            filters._direct_conv_valid(filters._edge_pad(x, half), kernels)
         finally:
             filters.F.conv1d = conv1d
-        by_fft = fft_convolve(padded, kernels, mode="valid")
-        exact = filters._direct_conv_valid(padded.double(), kernels.double())
-        k = torch.flip(kernels, dims=[-1])[:, None, :]
-
-        def tf32_direct():
-            with cudnn_tf32(True):
-                return torch.nn.functional.conv1d(padded[None], k, groups=AUGMENT_BATCH)[0]
-
-        out[f"{taps}_taps"] = {
-            "direct_ms": gpu_ms(lambda: filters._direct_conv_valid(padded, kernels), 10),
-            "direct_tf32_allowed_ms": gpu_ms(tf32_direct, 10),
-            "fft_ms": gpu_ms(lambda: fft_convolve(padded, kernels, mode="valid"), 10),
-            "direct_vs_fft_max_abs": float((direct - by_fft).abs().max()),
-            "direct_err_vs_float64": float((direct - exact).abs().max()),
-            "fft_err_vs_float64": float((by_fft - exact).abs().max()),
-            "direct_tf32_allowed_err_vs_float64": float((tf32_direct() - exact).abs().max()),
-        }
-    if seen != [True] * len(out):
+    if seen != [True] * len(halves):
         fail(f"cuDNN was off inside the filters' direct route: {seen}")
-    out["cudnn_enabled"] = True
-    return out
 
 
 def seeded_unet(seed: int) -> UNet:
@@ -946,70 +784,21 @@ def make_identity_unet(model: UNet) -> UNet:
     return model.eval()
 
 
-def unet_forward_flops(model: UNet, x: torch.Tensor) -> int:
-    """Multiply-adds x 2 of one forward of ``x``, summed over the
-    convolutions from the shapes they saw (the element-wise layers are not
-    counted)."""
-    total = 0
-
-    def count(mod, args, out):
-        nonlocal total
-        taps = mod.kernel_size[0] * mod.kernel_size[1]
-        if isinstance(mod, torch.nn.ConvTranspose2d):
-            total += 2 * args[0].numel() * mod.out_channels * taps
-        else:
-            total += 2 * out.numel() * mod.in_channels * taps
-
-    hooks = [m.register_forward_hook(count) for m in model.modules()
-             if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
-    with torch.inference_mode():
-        model(x)
-    for h in hooks:
-        h.remove()
-    return total
-
-
 def unet_phase(dev, sgrams: torch.Tensor) -> dict:
     """Phase 10 on ``sgrams`` (UNET_BATCH, 257, 251), normalised magnitudes
-    of degraded queries."""
+    of degraded queries: the seeded UNet's strict float32 forward on the
+    card, finite, and within 1e-3 of its largest output from the CPU's on
+    2 spectrograms."""
     on_cpu = seeded_unet(UNET_SEED)
-    strict = copy.deepcopy(on_cpu).to(dev)
-    bf16 = UNet(1, 1, dtype=torch.bfloat16).to(dev).eval()
-    bf16.load_state_dict(strict.state_dict())
-    strict_hook, bf16_hook = unet_denoiser(strict), unet_denoiser(bf16)
-
-    def tf32_hook(x):  # the same layers, TF32 allowed around them
-        with torch.inference_mode(), cudnn_tf32(True):
-            return strict.outc(strict.body(x[:, None]))[:, 0]
-
-    flops_one = unet_forward_flops(strict, sgrams[:1])
-    baseline = torch.cuda.memory_allocated()
-    runs = {}
-    for label, hook in (("float32", strict_hook), ("tf32_allowed", tf32_hook),
-                        ("bfloat16", bf16_hook)):
-        torch.cuda.reset_peak_memory_stats()
-        ms = gpu_ms(lambda: hook(sgrams), 2)
-        runs[label] = {
-            "ms": ms, "tflop_per_s": flops_one * sgrams.shape[0] / ms / 1e9,
-            "peak_bytes": torch.cuda.max_memory_allocated(),
-            "peak_bytes_above_start": torch.cuda.max_memory_allocated() - baseline,
-        }
+    strict_hook = unet_denoiser(copy.deepcopy(on_cpu).to(dev))
     few = sgrams[:8]
     want = strict_hook(few)
-    top = float(want.abs().max())
-    for label, hook in (("tf32_allowed", tf32_hook), ("bfloat16", bf16_hook)):
-        runs[label]["max_err_vs_float32_rel"] = float((hook(few) - want).abs().max()) / top
-    t0 = time.perf_counter()
     cpu_out = unet_denoiser(on_cpu)(sgrams[:2].cpu())
-    cpu_s = time.perf_counter() - t0
     card_vs_cpu = float((want[:2].cpu() - cpu_out).abs().max()) / float(cpu_out.abs().max())
     line = {
-        "phase": "unet", "base": strict.base, "seed": UNET_SEED,
-        "parameters": sum(p.numel() for p in strict.parameters()),
-        "input": list(sgrams.shape), "flops_one_forward": flops_one,
-        "output_max_abs": top, "output_finite": bool(torch.isfinite(want).all()),
-        "forward": runs, "card_vs_cpu_rel": card_vs_cpu, "card_vs_cpu_examples": 2,
-        "cpu_forward_s": cpu_s,
+        "phase": "unet", "base": on_cpu.base, "seed": UNET_SEED, "input": list(sgrams.shape),
+        "output_finite": bool(torch.isfinite(want).all()),
+        "card_vs_cpu_rel": card_vs_cpu, "card_vs_cpu_examples": 2,
     }
     emit(line)
     if not line["output_finite"] or want.shape != few.shape:
@@ -1023,63 +812,6 @@ def plain_tm(mask: torch.Tensor) -> torch.Tensor:
     """(B, F, C) bool mask of a plain prune -> the (B, C, F) 0/1 bytes the
     kernels' route carries."""
     return mask.transpose(1, 2).to(torch.uint8).contiguous()
-
-
-def _device_us(evt) -> float:
-    return getattr(evt, "self_device_time_total", 0) or getattr(evt, "self_cuda_time_total", 0)
-
-
-def profile_call(label: str, fn) -> dict:
-    """One call's wall time (plain, then under torch.profiler), the summed
-    device time of its kernels, the card's busy share and the top ops."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    # device-side events (kernels, copies) carry the card's time once; the
-    # host ops that launched them repeat it, so they only rank
-    on_card = [e for e in events if e.device_type == DeviceType.CUDA]
-    host_ops = [e for e in events if e.device_type != DeviceType.CUDA]
-    device_ms = sum(_device_us(e) for e in on_card) / 1e3
-
-    def top(evts, n=8):
-        return [
-            {"name": e.key[:80], "device_ms": _device_us(e) / 1e3, "count": e.count}
-            for e in sorted(evts, key=_device_us, reverse=True)[:n]
-        ]
-
-    prune_ms = sum(
-        _device_us(e) for e in on_card if "fwd_kernel" in e.key or "bwd_kernel" in e.key
-    ) / 1e3
-    # the kernels of a cuDNN convolution, whatever their names, are counted
-    # on the host op that launched them
-    conv_ms = sum(
-        _device_us(e) for e in host_ops
-        if e.key in ("aten::cudnn_convolution", "aten::cudnn_convolution_transpose")
-    ) / 1e3
-    lstm_ms = sum(_device_us(e) for e in host_ops if e.key == "aten::_cudnn_rnn") / 1e3
-    return {
-        "phase": "profile", "call": label, "wall_ms": wall_ms,
-        "traced_wall_ms": traced_ms, "device_ms": device_ms,
-        "busy_share": device_ms / traced_ms,
-        "prune_kernels_device_ms": prune_ms,
-        "prune_kernels_share_of_device": prune_ms / device_ms,
-        "cudnn_convolutions_device_ms": conv_ms,
-        "cudnn_convolutions_share_of_device": conv_ms / device_ms,
-        "cudnn_lstm_device_ms": lstm_ms, "cudnn_lstm_share_of_device": lstm_ms / device_ms,
-        "top_ops": top(host_ops), "top_kernels": top(on_card),
-    }
 
 
 def _rel_max(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1165,18 +897,14 @@ def train_step_check(dev) -> dict:
             {k: p.grad.cpu() for k, p in trainer.model.named_parameters()},
             {k: v.cpu() for k, v in trainer.model.state_dict().items() if "running_" in k},
         )
-    (loss_c, grads_c, stats_c), (loss_g, grads_g, stats_g) = runs["cpu"], runs["card"]
+    (loss_c, _, stats_c), (loss_g, _, stats_g) = runs["cpu"], runs["card"]
     grads_c64, grads_g64 = runs["cpu64"][1], runs["card64"][1]
     line = {
         "phase": "train_step_check", "base": 8, "batch": clean.shape[0], "samples": clean.shape[1],
-        "loss_cpu": loss_c, "loss_card": loss_g, "loss_rel": abs(loss_g - loss_c) / abs(loss_c),
+        "loss_rel": abs(loss_g - loss_c) / abs(loss_c),
         "stats_rel_max": max(_rel_max(stats_g[k], stats_c[k]) for k in stats_c),
         "grad_rel_max_float64": max(_rel_max(grads_g64[k], grads_c64[k]) for k in grads_c64),
         "conv_backward_vs_float64_max": probe_err,
-        "grad_rel_max_float32_not_held": max(_rel_max(grads_g[k], grads_c[k]) for k in grads_c),
-        "grad_rel_max_float32_cpu_vs_float64_not_held": max(
-            _rel_max(grads_c[k].double(), grads_c64[k]) for k in grads_c),
-        "tensors": len(grads_c),
     }
     emit(line)
     if not line["loss_rel"] <= MAX_STEP_LOSS_REL:
@@ -1194,14 +922,14 @@ def train_step_check(dev) -> dict:
 
 @functools.lru_cache(maxsize=None)
 def training_batches():
-    """(train, validation) lists of clean (128, 3 s) batches and the seconds
-    they took to make on the host (made once, for both models)."""
-    t0 = time.perf_counter()
+    """(train, validation) lists of clean (128, 3 s) batches (made once, for
+    both models)."""
     train = [b for b, _ in zip(synthetic_clean_batches(TP.BATCH_SIZE, TRAIN_SAMPLES, SR, seed=59),
                                range(TRAIN_STEPS))]
     val = [b for b, _ in zip(synthetic_clean_batches(TP.BATCH_SIZE, TRAIN_SAMPLES, SR, seed=4),
                              range(TRAIN_VAL_STEPS))]
-    return train, val, time.perf_counter() - t0
+    return train, val
+
 
 
 def cycle(batches):
@@ -1209,47 +937,15 @@ def cycle(batches):
         yield from batches
 
 
-def run_training(trainer: Trainer, clean: torch.Tensor, flops_step: float, label: str):
-    """Baseline validation, ``trainer.training_loop()`` with every step
-    timed, then one step under the profiler: step ms, examples/s, TFLOP/s,
-    peak memory, busy share and the loss curve, which must be finite and
-    whose validation loss must fall from the first epoch to the last.
-    Returns (run, profile)."""
-    times = []
-    step = trainer.train_step
-
-    def timed(*args):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = step(*args)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-        return out
-
-    trainer.train_step = timed
+def run_training(trainer: Trainer, label: str) -> dict:
+    """Baseline validation, then ``trainer.training_loop()``: the loss curve,
+    which must be finite and whose validation loss must fall from the first
+    epoch to the last."""
     baseline_loss, baseline_metrics = trainer.validation_epoch()
-    torch.cuda.reset_peak_memory_stats()
-    before = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
     trainer.training_loop()
-    loop_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    del trainer.train_step
     hist = trainer.history
-    median_s = float(np.median(times))
-    prof = profile_call(label, lambda: trainer.train_step(clean))
-    emit(prof)
-    batch = clean.shape[0]
     run = {
-        "steps": len(times), "step_ms_median": median_s * 1e3,
-        "step_ms_first": times[0] * 1e3, "step_ms_min": min(times) * 1e3,
-        "step_ms_max": max(times) * 1e3,
-        "examples_per_s": batch / median_s,
-        "tflop_per_s": flops_step / median_s / 1e12,
-        "busy_share": prof["busy_share"],
-        "cudnn_convolutions_share_of_device": prof["cudnn_convolutions_share_of_device"],
-        "peak_bytes": peak, "peak_bytes_above_start": peak - before,
-        "loop_seconds": loop_s,
+        "steps": trainer.step,
         "train_loss": [h["train"]["loss"] for h in hist],
         "val_loss": [baseline_loss["loss"]] + [h["val"]["loss"] for h in hist],
         "val_psnr": [baseline_metrics["psnr"]] + [h["metrics"]["psnr"] for h in hist],
@@ -1263,7 +959,7 @@ def run_training(trainer: Trainer, clean: torch.Tensor, flops_step: float, label
     # baseline no short run beats (0.0183 against 0.1335, 0.0228)
     if not run["val_loss"][-1] < run["val_loss"][1]:
         fail(f"{label}: the validation loss did not fall over the epochs: {run['val_loss']}")
-    return run, prof
+    return run
 
 
 def train_phase(dev, noise_bank, ir_bank, ckpt_root: str) -> str:
@@ -1276,7 +972,7 @@ def train_phase(dev, noise_bank, ir_bank, ckpt_root: str) -> str:
     float32 run's best checkpoint path."""
     params = test_pipelines_parameters["default_parameters"]
     fp = AugmentFP(noise_bank, SR, parameters=params, impulse_response_dir=ir_bank, device=dev)
-    train_batches, val_batches, data_s = training_batches()
+    train_batches, val_batches = training_batches()
 
     def make(dtype, ckpt, nb_epochs):
         return Trainer(
@@ -1288,21 +984,16 @@ def train_phase(dev, noise_bank, ir_bank, ckpt_root: str) -> str:
             save=True, device=dev,
         )
 
-    flops_forward = unet_forward_flops(
-        UNet(1, 1, base=64).to(dev).eval(), torch.zeros((1, 257, 1 + TRAIN_SAMPLES // 256), device=dev))
-    flops_step = 3 * flops_forward * TP.BATCH_SIZE  # forward + backward (two products)
     runs = {}
     for label, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
         ckpt = os.path.join(ckpt_root, label)
         trainer = make(dtype, ckpt, TRAIN_EPOCHS + 1)
-        run, prof = run_training(trainer, torch.from_numpy(train_batches[0]).to(dev), flops_step,
-                                 f"train_step, UNet base=64 {label}, batch {TP.BATCH_SIZE} x 3 s")
-        runs[label] = run
+        run = runs[label] = run_training(trainer, f"train, UNet base=64 {label}")
         if label == "float32":
             meta_path = os.path.join(ckpt, "last_epoch", "trainer_meta.json")
             with open(meta_path) as f:
                 meta = json.load(f)
-            del trainer, prof
+            del trainer
             torch.cuda.empty_cache()
             resumed = make(None, ckpt, TRAIN_EPOCHS + 1)
             start, step0 = resumed.epoch_start, resumed.step
@@ -1321,76 +1012,47 @@ def train_phase(dev, noise_bank, ir_bank, ckpt_root: str) -> str:
                 fail("the resumed epoch's validation loss is not finite")
             del resumed
         else:
-            del trainer, prof
+            del trainer
         torch.cuda.empty_cache()
-    line = {
+    emit({
         "phase": "train", "model": "UNet(1, 1, rate=0.05, base=64)", "batch": TP.BATCH_SIZE,
-        "samples": TRAIN_SAMPLES, "spectrogram": [257, 1 + TRAIN_SAMPLES // 256],
-        "augmentation": "default_parameters, dcase_shaped_banks()", "lr": TRAIN_LR,
-        "epochs": TRAIN_EPOCHS, "steps_per_epoch": TRAIN_STEPS, "val_steps": TRAIN_VAL_STEPS,
-        "flops_forward_one": flops_forward, "flops_step": flops_step,
-        "host_batches_seconds": data_s, "runs": runs,
-    }
-    emit(line)
+        "samples": TRAIN_SAMPLES, "augmentation": "default_parameters, dcase_shaped_banks()",
+        "lr": TRAIN_LR, "epochs": TRAIN_EPOCHS, "steps_per_epoch": TRAIN_STEPS,
+        "val_steps": TRAIN_VAL_STEPS, "runs": runs,
+    })
     return os.path.join(ckpt_root, "float32", "best_epoch", "state.pt")
 
 
 def trained_denoiser_phase(dev, ckpt_path, ht, dm, analyzer, queries, aug_default, q_names,
                            q_paths, cleans_dir) -> dict:
     """The denoised and peak-metric runs of phases 11 and 12 with the strict
-    float32 checkpoint of the train phase in place of the identity weights, in
-    strict float32, with TF32 allowed and in bfloat16; how far the two
-    faster ones move verdicts, masks and the denoised F1."""
+    float32 checkpoint of the train phase in place of the identity weights:
+    the three accuracies of each set and eight finite peak metrics."""
     state = torch.load(ckpt_path, map_location=dev, weights_only=True)["model"]
     strict = UNet(1, 1).to(dev)
     strict.load_state_dict(state)
-    bf16 = UNet(1, 1, dtype=torch.bfloat16).to(dev)
-    bf16.load_state_dict(state)
-    strict_hook, bf16_hook = unet_denoiser(strict), unet_denoiser(bf16)
-
-    def tf32_hook(x):  # the same layers, TF32 allowed around them
-        with torch.inference_mode(), cudnn_tf32(True):
-            return strict.outc(strict.body(x[:, None]))[:, 0]
-
-    aug_batch = aug_default[:QUERY_BATCH]
-    out, verdicts, masks = {}, {}, {}
+    den = AudfprintPeaks(afp_settings["audfprint"], denoising=True, denoising_model="unet",
+                         spec_denoiser=unet_denoiser(strict), device=dev)
     K.reset_launch_counts()
     HC.reset_launch_counts()
-    for label, hook in (("float32", strict_hook), ("tf32_allowed", tf32_hook), ("bfloat16", bf16_hook)):
-        den = AudfprintPeaks(afp_settings["audfprint"], denoising=True, denoising_model="unet",
-                             spec_denoiser=hook, device=dev)
-        masks[label] = P.find_peaks_batch(aug_batch, denoiser=hook)
-        verdicts[label] = dm.match_waveforms(aug_batch, shifts=SHIFTS, denoiser=hook)
-        torch.cuda.synchronize()
-        sets = {}
-        for name, qs in (("cleans", queries[:DENOISED_QUERIES]), ("default_parameters", list(aug_default))):
-            t0 = time.perf_counter()
-            acc = compute_accuracy_batched(qs, ht, analyzer, den, batch_size=QUERY_BATCH, shifts=SHIFTS,
-                                           device_matcher=dm, names=q_names, device=dev)
-            sets[name] = {"accuracy": acc, "queries_per_s": DENOISED_QUERIES / (time.perf_counter() - t0)}
-        t0 = time.perf_counter()
-        metrics = compute_peaks_metrics_batched(q_paths, analyzer, den, cleans_path=cleans_dir)
-        out[label] = {"sets": sets, "peaks_metrics": metrics,
-                      "peaks_metrics_queries_per_s": DENOISED_QUERIES / (time.perf_counter() - t0)}
-        if set(metrics) != set(PEAKS_METRICS) or not all(math.isfinite(v) for v in metrics.values()):
-            fail(f"trained denoiser {label}: peak metrics missing or not finite: {metrics}")
-        for name, row in sets.items():
-            if set(row["accuracy"]) != {"No Denoising", "With Denoising", "Mix Pipeline"}:
-                fail(f"trained denoiser {label} {name}: accuracies {sorted(row['accuracy'])}")
+    sets = {}
+    for name, qs in (("cleans", queries[:DENOISED_QUERIES]), ("default_parameters", list(aug_default))):
+        sets[name] = compute_accuracy_batched(qs, ht, analyzer, den, batch_size=QUERY_BATCH,
+                                              shifts=SHIFTS, device_matcher=dm, names=q_names,
+                                              device=dev)
+    metrics = compute_peaks_metrics_batched(q_paths, analyzer, den, cleans_path=cleans_dir)
     launches = dict(K.LAUNCHES)
-    # a precision: its verdicts' call, then 2 sets x 2 arms of DENOISED_QUERIES
-    hashes_counted("trained_denoiser", 3 * (1 + 2 * 2 * (DENOISED_QUERIES // QUERY_BATCH)))
-    for label in ("tf32_allowed", "bfloat16"):
-        out[label]["vs_float32"] = {
-            "verdicts_equal": sum(a[:2] == b[:2] for a, b in zip(verdicts[label], verdicts["float32"]))
-            / len(verdicts["float32"]),
-            "mask_cells_equal": float((masks[label] == masks["float32"]).float().mean()),
-            "f1_den_diff": out[label]["peaks_metrics"]["f1_den"] - out["float32"]["peaks_metrics"]["f1_den"],
-        }
+    # 2 sets x 2 arms of DENOISED_QUERIES
+    hashes_counted("trained_denoiser", 2 * 2 * (DENOISED_QUERIES // QUERY_BATCH))
     line = {"phase": "trained_denoiser", "checkpoint": "train phase, float32, best_epoch",
-            "queries": DENOISED_QUERIES, "shifts": SHIFTS, "mask_peaks_float32": int(masks["float32"].sum()),
-            "precisions": out, "launches": launches}
+            "queries": DENOISED_QUERIES, "shifts": SHIFTS, "accuracy": sets,
+            "peaks_metrics": metrics, "launches": launches}
     emit(line)
+    if set(metrics) != set(PEAKS_METRICS) or not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"trained denoiser: peak metrics missing or not finite: {metrics}")
+    for name, acc in sets.items():
+        if set(acc) != {"No Denoising", "With Denoising", "Mix Pipeline"}:
+            fail(f"trained denoiser {name}: accuracies {sorted(acc)}")
     for k, n in launches.items():
         if n <= 0:
             fail(f"{k} kernel did not launch in the trained-denoiser runs")
@@ -1407,162 +1069,39 @@ def seeded_demucs(seed: int, **kwargs) -> Demucs:
     return rescale_params(Demucs(**kwargs), reference=0.1).eval()
 
 
-def demucs_forward_flops(model: Demucs, x: torch.Tensor) -> dict:
-    """Multiply-adds x 2 of one forward of ``x`` by part: the encoder's and
-    the decoder's convolutions from the shapes they saw, the LSTM's gate
-    products (4 gates x (input + hidden) per unit, step and direction, every
-    layer) with the linear layer after a bidirectional one. The sinc
-    resampling (112 taps a sample) and the element-wise layers are not
-    counted."""
-    parts = {"encoder": 0, "decoder": 0, "lstm": 0}
-
-    def conv(part):
-        def count(mod, args, out):
-            k = mod.kernel_size[0]
-            if isinstance(mod, torch.nn.ConvTranspose1d):
-                parts[part] += 2 * args[0].numel() * mod.out_channels * k
-            else:
-                parts[part] += 2 * out.numel() * mod.in_channels * k
-        return count
-
-    def lstm(mod, args, out):
-        b, t = args[0].shape[:2]
-        dirs = 2 if mod.bidirectional else 1
-        for layer in range(mod.num_layers):
-            width = mod.input_size if layer == 0 else dirs * mod.hidden_size
-            parts["lstm"] += 2 * b * t * dirs * 4 * mod.hidden_size * (width + mod.hidden_size)
-
-    def linear(mod, args, out):
-        parts["lstm"] += 2 * out.numel() * mod.in_features
-
-    hooks = [model.lstm.lstm.register_forward_hook(lstm)]
-    if model.lstm.linear is not None:
-        hooks.append(model.lstm.linear.register_forward_hook(linear))
-    for part, stack in (("encoder", model.encoder), ("decoder", model.decoder)):
-        hooks += [m.register_forward_hook(conv(part)) for m in stack.modules()
-                  if isinstance(m, (torch.nn.Conv1d, torch.nn.ConvTranspose1d))]
-    with torch.inference_mode():
-        model(x)
-    for h in hooks:
-        h.remove()
-    parts["total"] = sum(parts.values())
-    return parts
-
-
-def resample_routes(dev, lengths) -> dict:
-    """The x2 sinc pair's 112-tap one-channel correlation at the lengths a
-    Demucs forward of DEMUCS_BATCH 8 s queries gives it, by the two routes:
-    ``core/convolve.fft_convolve`` as ``core/resample.py`` runs it, and
-    ``F.conv1d`` over (B, 1, T) (cuDNN, TF32 off): ms of each, errors
-    against float64; and the whole x4 up and down chains as the model runs
-    them."""
-    zeros = 56
-    kernel = torch.from_numpy(RS._kernel_updown2(zeros)).to(dev).view(1, 1, -1)
-    g = torch.Generator().manual_seed(7)
-    out = {}
-    for n in lengths:
-        x = torch.randn((DEMUCS_BATCH, n), generator=g).to(dev)
-
-        def by_fft(x=x):
-            return RS._conv1d_same_padded(x, zeros)
-
-        def by_conv1d(x=x):
-            with cudnn_tf32(False):
-                return torch.nn.functional.conv1d(x[:, None], kernel, padding=zeros)[:, 0]
-
-        exact = RS._conv1d_same_padded(x.double(), zeros)
-        out[f"{n}_samples"] = {
-            "fft_ms": gpu_ms(by_fft, 10), "conv1d_ms": gpu_ms(by_conv1d, 10),
-            "fft_err_vs_float64": float((by_fft() - exact).abs().max()),
-            "conv1d_err_vs_float64": float((by_conv1d() - exact).abs().max()),
-        }
-    x = torch.randn((DEMUCS_BATCH, 1, lengths[0]), generator=g).to(dev)
-    up = RS.upsample2(RS.upsample2(x))
-    out["up4_ms"] = gpu_ms(lambda: RS.upsample2(RS.upsample2(x)), 10)
-    out["down4_ms"] = gpu_ms(lambda: RS.downsample2(RS.downsample2(up)), 10)
-    return out
-
-
-def lstm_tf32_probe(model: Demucs, x: torch.Tensor) -> dict:
-    """The model's cuDNN LSTM on its own operands (the encoder's output for
-    ``x``) in float32 with TF32 off and allowed, each against a float64 copy
-    of the layer on the same operands, relative to the largest output:
-    ~1e-6 without TF32, ~1e-3 with it."""
-    lstm64 = copy.deepcopy(model.lstm.lstm).double()
-    with torch.inference_mode():
-        enc = model(x, stop_at="enc").transpose(1, 2).contiguous()
-        exact = lstm64(enc.double())[0]
-        out = {}
-        for label, allow in (("tf32_off", False), ("tf32_allowed", True)):
-            with cudnn_tf32(allow):
-                out[label] = _rel_max(model.lstm.lstm(enc)[0].double(), exact)
-    out["operands"] = list(enc.shape)
-    return out
-
-
 def demucs_phase(dev, queries: torch.Tensor) -> Demucs:
-    """Phase 16: the published Demucs with seeded weights on
-    ``queries`` (DEMUCS_BATCH, 8 s) of degraded audio. Returns the strict
-    float32 model on the card."""
+    """Phase 16: the published Demucs with seeded weights on ``queries``
+    (DEMUCS_BATCH, 8 s) of degraded audio: its strict float32 forward,
+    finite, within 1e-4 of its largest output from the CPU's on 2 clips, and
+    its cuDNN LSTM within 1e-4 of a float64 copy on the same operands.
+    Returns the strict float32 model on the card."""
     on_cpu = seeded_demucs(DEMUCS_SEED)
     strict = copy.deepcopy(on_cpu).to(dev)
-    bf16 = Demucs(dtype=torch.bfloat16).to(dev)
-    bf16.load_state_dict(strict.state_dict())
-    strict_hook, bf16_hook = demucs_denoiser(strict), demucs_denoiser(bf16)
-
-    def tf32_hook(x):  # the same layers, TF32 allowed around them
-        with torch.inference_mode(), cudnn_tf32(True):
-            return strict._forward(x, None)
-
-    flops = demucs_forward_flops(strict, queries[:1])
-    baseline = torch.cuda.memory_allocated()
-    runs = {}
-    for label, hook in (("float32", strict_hook), ("tf32_allowed", tf32_hook),
-                        ("bfloat16", bf16_hook)):
-        torch.cuda.reset_peak_memory_stats()
-        ms = gpu_ms(lambda: hook(queries), 3)
-        runs[label] = {
-            "ms": ms, "tflop_per_s": flops["total"] * queries.shape[0] / ms / 1e9,
-            "peak_bytes": torch.cuda.max_memory_allocated(),
-            "peak_bytes_above_start": torch.cuda.max_memory_allocated() - baseline,
-        }
+    strict_hook = demucs_denoiser(strict)
     few = queries[:8]
     want = strict_hook(few)
-    top = float(want.abs().max())
-    for label, hook in (("tf32_allowed", tf32_hook), ("bfloat16", bf16_hook)):
-        runs[label]["max_err_vs_float32_rel"] = float((hook(few) - want).abs().max()) / top
-    timer = StageTimer(device=dev)  # cumulative prefixes, on the card's clock
-    with torch.inference_mode():
-        for stop in STOP_AT + (None,):
-            strict(queries, stop_at=stop)
-            for _ in range(3):
-                with timer.stage(stop or "output"):
-                    strict(queries, stop_at=stop)
-    t0 = time.perf_counter()
     cpu_out = demucs_denoiser(on_cpu)(queries[:DEMUCS_CPU_EXAMPLES].cpu())
-    cpu_s = time.perf_counter() - t0
     card_vs_cpu = _rel_max(want[:DEMUCS_CPU_EXAMPLES].cpu(), cpu_out)
-    length = strict.valid_length(queries.shape[-1])
+    # the LSTM on its own operands (the encoder's output), TF32 off, against
+    # float64
+    lstm64 = copy.deepcopy(strict.lstm.lstm).double()
+    with torch.inference_mode(), cudnn_tf32(False):
+        enc = strict(queries[:16], stop_at="enc").transpose(1, 2).contiguous()
+        lstm_rel = _rel_max(strict.lstm.lstm(enc)[0].double(), lstm64(enc.double())[0])
+
     line = {
         "phase": "demucs", "model": "Demucs() hidden 48, depth 5, causal, x4", "seed": DEMUCS_SEED,
-        "parameters": sum(p.numel() for p in strict.parameters()),
-        "parameters_jax_layout": sum(p.numel() for n, p in strict.named_parameters()
-                                     if not n.startswith("lstm.lstm.bias_hh")),
-        "input": list(queries.shape), "flops_one_forward": flops,
-        "output_max_abs": top, "output_finite": bool(torch.isfinite(want).all()),
-        "forward": runs, "stages_cumulative_ms": {k: v["mean_ms"] for k, v in timer.summary().items()},
+        "input": list(queries.shape), "output_finite": bool(torch.isfinite(want).all()),
         "card_vs_cpu_rel": card_vs_cpu, "card_vs_cpu_examples": DEMUCS_CPU_EXAMPLES,
-        "card_vs_cpu_reads": "largest |card - cpu| over the largest |cpu output|, strict float32",
-        "cpu_forward_s": cpu_s, "lstm_probe_vs_float64": lstm_tf32_probe(strict, queries[:16]),
-        "resample_routes": resample_routes(dev, [length, 2 * length]),
+        "lstm_vs_float64_rel": lstm_rel,
     }
     emit(line)
     if not line["output_finite"] or want.shape != few.shape:
         fail(f"the Demucs output is not finite or of shape {tuple(want.shape)}")
     if not card_vs_cpu <= MAX_DEMUCS_CARD_VS_CPU:
         fail(f"the Demucs on the card is {card_vs_cpu} of its largest output away from the CPU")
-    if not line["lstm_probe_vs_float64"]["tf32_off"] <= MAX_LSTM_STRICT_REL:
-        fail(f"the strict float32 cuDNN LSTM is {line['lstm_probe_vs_float64']} from float64")
+    if not lstm_rel <= MAX_LSTM_STRICT_REL:
+        fail(f"the strict float32 cuDNN LSTM is {lstm_rel} from float64")
     return strict
 
 
@@ -1592,10 +1131,9 @@ def demucs_denoised_phase(label, model, ht, dm, analyzer, queries, aug_default, 
     HC.reset_launch_counts()
     sets = {}
     for name, qs in (("cleans", queries[:DENOISED_QUERIES]), ("default_parameters", list(aug_default))):
-        t0 = time.perf_counter()
-        acc = compute_accuracy_batched(qs, ht, analyzer, den, batch_size=QUERY_BATCH, shifts=SHIFTS,
-                                       device_matcher=dm, names=q_names, device=dm.device)
-        sets[name] = {"accuracy": acc, "queries_per_s": DENOISED_QUERIES / (time.perf_counter() - t0)}
+        sets[name] = compute_accuracy_batched(qs, ht, analyzer, den, batch_size=QUERY_BATCH,
+                                              shifts=SHIFTS, device_matcher=dm, names=q_names,
+                                              device=dm.device)
     recorded = []
     match = dm.match_waveforms
 
@@ -1607,32 +1145,25 @@ def demucs_denoised_phase(label, model, ht, dm, analyzer, queries, aug_default, 
     calls.clear()
     dm.match_waveforms = recording
     try:
-        t0 = time.perf_counter()
-        arm = compute_accuracy_batched(list(aug_default), ht, den, batch_size=QUERY_BATCH, shifts=SHIFTS,
-                                       device_matcher=dm, names=q_names, device=dm.device)
-        arm_qps = DENOISED_QUERIES / (time.perf_counter() - t0)
+        compute_accuracy_batched(list(aug_default), ht, den, batch_size=QUERY_BATCH, shifts=SHIFTS,
+                                 device_matcher=dm, names=q_names, device=dm.device)
     finally:
         del dm.match_waveforms
     arm_calls = list(calls)
-    t0 = time.perf_counter()
     metrics = compute_peaks_metrics_batched(q_paths, analyzer, den, cleans_path=cleans_dir)
-    metrics_s = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     # 2 sets x 2 arms, then the denoised arm alone
     hashes_counted(f"demucs_{label.split(':')[0]}", 5 * (DENOISED_QUERIES // QUERY_BATCH))
     line = {
         "phase": "demucs_denoised", "weights": label, "queries": DENOISED_QUERIES, "shifts": SHIFTS,
-        "sets": sets, "denoised_arm_alone_queries_per_s": arm_qps,
-        "denoised_arm_alone_accuracy": arm["No Denoising"],
-        "hook_calls_denoised_arm": arm_calls,
+        "accuracy": sets, "hook_calls_denoised_arm": arm_calls,
         "denoised_arm_verdicts_equal_pre_denoised": recorded == expected,
-        "peaks_metrics": metrics, "peaks_metrics_queries_per_s": DENOISED_QUERIES / metrics_s,
-        "launches": launches,
+        "peaks_metrics": metrics, "launches": launches,
     }
     emit(line)
-    for name, row in sets.items():
-        if set(row["accuracy"]) != {"No Denoising", "With Denoising", "Mix Pipeline"}:
-            fail(f"demucs_denoised {label} {name}: accuracies {sorted(row['accuracy'])}")
+    for name, acc in sets.items():
+        if set(acc) != {"No Denoising", "With Denoising", "Mix Pipeline"}:
+            fail(f"demucs_denoised {label} {name}: accuracies {sorted(acc)}")
     if arm_calls != [(QUERY_BATCH, QUERY_SECONDS * SR)] * (DENOISED_QUERIES // QUERY_BATCH):
         fail(f"demucs_denoised {label}: the waveform hook ran {arm_calls}, not once per batch")
     if recorded != expected:
@@ -1651,7 +1182,7 @@ def demucs_train_step_check(dev) -> dict:
     ``Demucs(hidden=8, depth=3)`` through ``Trainer.train_step`` on the card
     and on the CPU from the same weights and batch: the loss terms; the same
     step in float64, every gradient (float32 gradients of a ReLU network
-    jump where rounding flips a ReLU, so they are reported, not held)."""
+    jump where rounding flips a ReLU, so they are not compared)."""
     clean = next(synthetic_clean_batches(8, TRAIN_SAMPLES, SR, seed=DEMUCS_SEED))
     r = np.random.default_rng(DEMUCS_SEED)
     aug = (0.7 * clean + 0.2 * r.standard_normal(clean.shape)).astype(np.float32)
@@ -1668,15 +1199,13 @@ def demucs_train_step_check(dev) -> dict:
                                    torch.from_numpy(aug).to(device, dtype))
         runs[label] = ({k: float(v) for k, v in terms.items()},
                        {k: p.grad.cpu() for k, p in trainer.model.named_parameters()})
-    (terms_c, grads_c), (terms_g, grads_g) = runs["cpu"], runs["card"]
+    terms_c, terms_g = runs["cpu"][0], runs["card"][0]
     grads_c64, grads_g64 = runs["cpu64"][1], runs["card64"][1]
     line = {
         "phase": "demucs_train_step_check", "model": "Demucs(hidden=8, depth=3)",
-        "batch": clean.shape[0], "samples": clean.shape[1], "terms_cpu": terms_c, "terms_card": terms_g,
+        "batch": clean.shape[0], "samples": clean.shape[1],
         "terms_rel_max": max(abs(terms_g[k] - v) / abs(v) for k, v in terms_c.items()),
         "grad_rel_max_float64": max(_rel_max(grads_g64[k], grads_c64[k]) for k in grads_c64),
-        "grad_rel_max_float32_not_held": max(_rel_max(grads_g[k], grads_c[k]) for k in grads_c),
-        "tensors": len(grads_c),
     }
     emit(line)
     if not line["terms_rel_max"] <= MAX_STEP_LOSS_REL:
@@ -1697,9 +1226,7 @@ def demucs_train_phase(dev, noise_bank, ir_bank, ckpt_root: str) -> str:
     checkpoint path."""
     params = test_pipelines_parameters["default_parameters"]
     fp = AugmentFP(noise_bank, SR, parameters=params, impulse_response_dir=ir_bank, device=dev)
-    train_batches, val_batches, data_s = training_batches()
-    flops = demucs_forward_flops(Demucs().to(dev).eval(), torch.zeros((1, TRAIN_SAMPLES), device=dev))
-    flops_step = 3 * flops["total"] * TP.BATCH_SIZE  # forward + backward (two products)
+    train_batches, val_batches = training_batches()
     runs = {}
     for label, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
         trainer = Trainer(
@@ -1711,18 +1238,16 @@ def demucs_train_phase(dev, noise_bank, ir_bank, ckpt_root: str) -> str:
             early_stopping=EarlyStopping(patience=TP.EARLY_STOP, min_delta=TP.MIN_DELTA),
             save=True, device=dev,
         )
-        runs[label], prof = run_training(trainer, torch.from_numpy(train_batches[0]).to(dev), flops_step,
-                                         f"train_step, Demucs {label}, batch {TP.BATCH_SIZE} x 3 s")
-        runs[label]["cudnn_lstm_share_of_device"] = prof["cudnn_lstm_share_of_device"]
-        del trainer, prof
+        runs[label] = run_training(trainer, f"demucs_train, {label}")
+        del trainer
         torch.cuda.empty_cache()
     emit({
         "phase": "demucs_train", "model": "Demucs(), Flax's init rescaled", "batch": TP.BATCH_SIZE,
         "samples": TRAIN_SAMPLES, "augmentation": "default_parameters, dcase_shaped_banks()",
         "lr": DEMUCS_TRAIN_LR, "epochs": TRAIN_EPOCHS, "steps_per_epoch": TRAIN_STEPS,
-        "val_steps": TRAIN_VAL_STEPS, "flops_forward_one": flops, "flops_step": flops_step,
-        "host_batches_seconds": data_s, "runs": runs,
+        "val_steps": TRAIN_VAL_STEPS, "runs": runs,
     })
+
     return os.path.join(ckpt_root, "float32", "best_epoch", "state.pt")
 
 
@@ -1730,21 +1255,18 @@ def streamer_phase(dev) -> dict:
     """Phase 21: ``DemucsStreamer`` over the seeded published Demucs at
     8 kHz, fed STREAM_SECONDS of white noise frame by frame as the
     reference's self-benchmark feeds it, then flushed: the delta to the
-    offline forward (under 5%), the initial lag, the time per frame on the
-    host's clock (which includes the copy of each frame's output to the host)
-    and on the card's, and the real-time factor (under 1). The delta on a
-    synthetic music clip is reported, not held."""
+    offline forward (under 5%) and the real-time factor, the time per frame
+    on the host's clock (which includes the copy of each frame's output to
+    the host) over the stride (under 1)."""
     model = seeded_demucs(DEMUCS_SEED).to(dev)
     rng = np.random.default_rng(DEMUCS_SEED)
     noise = torch.from_numpy(rng.standard_normal((1, STREAM_SECONDS * SR), dtype=np.float32))
-    music = torch.from_numpy(next(synthetic_clean_batches(1, STREAM_SECONDS * SR, SR, seed=DEMUCS_SEED)))
 
-    def stream(x, timer=None):
+    def stream(x):
         s = DemucsStreamer(model)
         outs, pending, size = [], x, s.total_length
         while pending.shape[1] > 0:
-            with timer.stage("feed") if timer is not None else contextlib.nullcontext():
-                outs.append(s.feed(pending[:, :size]))
+            outs.append(s.feed(pending[:, :size]))
             pending, size = pending[:, size:], model.total_stride
         outs.append(s.flush())
         out = torch.cat(outs, dim=1)
@@ -1754,20 +1276,11 @@ def streamer_phase(dev) -> dict:
         return delta, s
 
     stream(noise[:, :SR])  # warm-up
-    timer = StageTimer(device=dev)
-    delta, s = stream(noise, timer)
-    music_delta, _ = stream(music)
-    stride_ms = s.stride / SR * 1e3
-    tpf_ms = 1e3 * s.time_per_frame
+    delta, s = stream(noise)
     line = {
         "phase": "streamer", "model": "Demucs() seeded, rescaled", "sample_rate": SR,
-        "seconds": STREAM_SECONDS, "frames": s.frames, "frame_length": s.frame_length,
-        "total_length": s.total_length, "stride": s.stride,
-        "model_size_mb": sum(p.numel() for p in model.parameters()) * 4 / 2**20,
-        "delta_batch_streaming": delta, "delta_synthetic_music_not_held": music_delta,
-        "initial_lag_ms": s.total_length / SR * 1e3, "stride_ms": stride_ms,
-        "time_per_frame_ms": tpf_ms, "feed_card_ms": timer.summary()["feed"]["mean_ms"],
-        "rtf": tpf_ms / stride_ms,
+        "seconds": STREAM_SECONDS, "frames": s.frames, "delta_batch_streaming": delta,
+        "rtf": s.time_per_frame / (s.stride / SR),
     }
     emit(line)
     if not delta < MAX_STREAM_DELTA:
@@ -1806,16 +1319,14 @@ def dj_song(verdict):
     return verdict["results"][0]["song_name"].decode() if verdict["match"] else None
 
 
-def dj_recognize(dm, queries) -> tuple:
-    """(verdicts, seconds) of ``recognize_waveforms`` over ``queries`` (a
-    (N, T) tensor or a list of (T,) tensors) in batches of QUERY_BATCH."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+def dj_recognize(dm, queries) -> list:
+    """The verdicts of ``recognize_waveforms`` over ``queries`` (a (N, T)
+    tensor or a list of (T,) tensors) in batches of QUERY_BATCH."""
     out = []
     for s in range(0, len(queries), QUERY_BATCH):
         chunk = queries[s : s + QUERY_BATCH]
         out += dm.recognize_waveforms(chunk if isinstance(chunk, torch.Tensor) else torch.stack(chunk))
-    return out, time.perf_counter() - t0
+    return out
 
 
 def dj_accuracy(verdicts, gts) -> float:
@@ -1833,31 +1344,17 @@ def dejavu_ingest_phase(dev, tracks, cut_secs, names):
     for sec in np.unique(cut_secs):
         ids = np.nonzero(cut_secs == sec)[0]
         batches += [ids[s : s + DJ_INGEST_BATCH] for s in range(0, len(ids), DJ_INGEST_BATCH)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     for ids in batches:
         n = int(cut_secs[ids[0]]) * SR
         idx.ingest_arrays([names[i] for i in ids], torch.stack([tracks[i][:n] for i in ids]),
                           DJ_SETTINGS, device=dev)
-    ingest_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
     starts, rows, nbuckets, depth = idx.finalize()
-    finalize_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
     dm = DejavuDeviceMatcher(idx, DJ_SETTINGS, device=dev)
-    torch.cuda.synchronize()
-    upload_s = time.perf_counter() - t0
     line = {
         "phase": "dejavu_ingest", "tracks": len(names), "batches": len(batches),
         "lengths_s": sorted(int(s) for s in np.unique(cut_secs)),
-        "ingest_s": ingest_s, "finalize_s": finalize_s, "upload_s": upload_s,
-        "tracks_per_s": len(names) / (ingest_s + finalize_s + upload_s),
-        "tracks_per_s_ingest_arrays_alone": len(names) / ingest_s,
         "rows": int(rows.shape[0]), "nbuckets": nbuckets, "bucket_depth": depth,
         "rows_dropped": idx.rows_dropped, "max_rows_per_hash": idx.max_rows_per_hash,
-        "csr_bytes_on_card": dm.index_bytes(), "host_finalize_share":
-        finalize_s / (ingest_s + finalize_s + upload_s),
-        "hashes_per_track_mean": float(np.mean(idx.total_hashes)),
     }
     return idx, dm, line
 
@@ -1870,17 +1367,13 @@ def dejavu_oracle_phase(dev, tracks, cut_secs, names, oracle_queries, gts, tids)
     ``_dejavu_match_impl`` through ``match_packed``): every field of every
     verdict must be equal. Returns (the SQLite-backed Dejavu, line)."""
     st = DJ_SETTINGS
-    t0 = time.perf_counter()
     track_masks = {}
     for sec in np.unique(cut_secs[tids]):
         ids = [t for t in tids if cut_secs[t] == sec]
         for t, m in zip(ids, dj_masks(torch.stack([tracks[t][: int(sec) * SR] for t in ids]))):
             track_masks[t] = m
     q_masks = dj_masks(torch.stack(oracle_queries))
-    torch.cuda.synchronize()
-    masks_s = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
     djv = Dejavu({}, st, db=SQLiteDatabase(":memory:"), device=dev)
     for t in tids:
         hashes = set(generate_hashes(peaks_from_mask(track_masks[t].cpu().numpy()), st["fan_value"]))
@@ -1892,9 +1385,7 @@ def dejavu_oracle_phase(dev, tracks, cut_secs, names, oracle_queries, gts, tids)
         hashes = set(generate_hashes(peaks_from_mask(m), st["fan_value"]))
         matches, dedup, _ = djv.find_matches(hashes)
         host.append(djv.align_matches(matches, dedup, len(hashes)))
-    host_s = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
     idx = DejavuDeviceIndex()
     for t in tids:
         C = track_masks[t].shape[-1]
@@ -1904,7 +1395,6 @@ def dejavu_oracle_phase(dev, tracks, cut_secs, names, oracle_queries, gts, tids)
     C = q_masks.shape[-1]
     device = dm.match_packed(
         pack_hashes_from_masks(q_masks, dj_max_peaks(C), st["fan_value"]), C)
-    device_s = time.perf_counter() - t0
 
     mismatched = []
     for i, (h, d) in enumerate(zip(host, device)):
@@ -1919,8 +1409,8 @@ def dejavu_oracle_phase(dev, tracks, cut_secs, names, oracle_queries, gts, tids)
         "mismatched": len(mismatched), "first_mismatches": mismatched[:3],
         "accuracy_device": dj_accuracy(
             [{"match": bool(d), "results": [d]} for d in device], gts),
-        "masks_s": masks_s, "host_path_s": host_s, "device_path_s": device_s,
         "sqlite_fingerprints": djv.db.get_num_fingerprints(),
+
     }
     emit(line)
     if mismatched:
@@ -1930,48 +1420,31 @@ def dejavu_oracle_phase(dev, tracks, cut_secs, names, oracle_queries, gts, tids)
 
 
 def dejavu_phases(dev, tracks, lengths, names, queries, q_ids, q_offs, unseen, augmented_host,
-                  q_paths, cleans_dir, tmp) -> tuple:
-    """Phases 22-29, Dejavu at the paper's settings on the script's corpus
+                  q_paths, cleans_dir, tmp):
+    """Phases 22-28, Dejavu at the paper's settings on the script's corpus
     and queries: ingest, match, conditions, oracle, card against CPU, the
-    two denoiser arms, the peak metrics and a profile. Returns the line of
-    seconds and the index."""
-    t_start = time.perf_counter()
+    two denoiser arms and the peak metrics. Returns the index."""
     cut_secs = lengths // SR
     crops_past_cut = int(sum(int(o) + QUERY_SECONDS * SR > int(cut_secs[t]) * SR
                              for t, o in zip(q_ids, q_offs)))
     idx, dm, ingest_line = dejavu_ingest_phase(dev, tracks, cut_secs, names)
-    ingest_line["crops_past_cut"] = crops_past_cut
-    ing_ids = np.nonzero(cut_secs == cut_secs[0])[0][:DJ_INGEST_BATCH]
-    ing_batch = torch.stack([tracks[i][: int(cut_secs[0]) * SR] for i in ing_ids])
-    ingest_line["profile_one_batch"] = profile_call(
-        f"ingest_arrays, {len(ing_ids)} x {int(cut_secs[0])} s",
-        lambda: DejavuDeviceIndex().ingest_arrays(list(map(str, ing_ids)), ing_batch, DJ_SETTINGS,
-                                                  device=dev))
-    busy = ingest_line["profile_one_batch"]["busy_share"]
-    ingest_line["host_share"] = (
-        ingest_line["finalize_s"] + ingest_line["ingest_s"] * (1 - min(busy, 1.0))
-    ) / (ingest_line["ingest_s"] + ingest_line["finalize_s"] + ingest_line["upload_s"])
-    emit(ingest_line)
+    emit({**ingest_line, "crops_past_cut": crops_past_cut})
 
     # ---- 23. match: the 1,024 clean crops and the 128 unseen ones
     gts = [names[int(t)] for t in q_ids]
-    verdicts, match_s = dj_recognize(dm, queries)
-    accuracy = dj_accuracy(verdicts, gts)
-    unseen_v, unseen_s = dj_recognize(dm, unseen)
+    accuracy = dj_accuracy(dj_recognize(dm, queries), gts)
+    unseen_v = dj_recognize(dm, unseen)
     emit({"phase": "dejavu_match", "queries": len(queries), "batch": QUERY_BATCH,
-          "accuracy": accuracy, "seconds": match_s, "queries_per_s": len(queries) / match_s,
-          "crops_past_cut": crops_past_cut, "unseen_queries": len(unseen),
-          "unseen_nomatch_rate_not_held": sum(not v["match"] for v in unseen_v) / len(unseen),
-          "unseen_queries_per_s": len(unseen) / unseen_s})
+          "accuracy": accuracy, "unseen_queries": len(unseen),
+          "unseen_nomatch_rate_not_held": sum(not v["match"] for v in unseen_v) / len(unseen)})
     if accuracy < MIN_CLEAN_ACCURACY:
         fail(f"dejavu clean accuracy {accuracy} < {MIN_CLEAN_ACCURACY}")
 
     # ---- 24. conditions: the augmented queries of phase 7
-    conditions = {"cleans": {"accuracy": accuracy, "queries_per_s": len(queries) / match_s}}
+    conditions = {"cleans": accuracy}
     for cond, out in augmented_host.items():
-        v, s = dj_recognize(dm, out.to(dev))
-        conditions[cond] = {"accuracy": dj_accuracy(v, gts), "queries_per_s": len(gts) / s}
-    emit({"phase": "dejavu_conditions", "queries": len(queries), "conditions": conditions})
+        conditions[cond] = dj_accuracy(dj_recognize(dm, out.to(dev)), gts)
+    emit({"phase": "dejavu_conditions", "queries": len(queries), "accuracy": conditions})
 
     # ---- 25. oracle: the host SQLite path against the device path
     aug_default = augmented_host["default_parameters"]
@@ -1987,9 +1460,7 @@ def dejavu_phases(dev, tracks, lengths, names, queries, q_ids, q_offs, unseen, a
     q_batch = torch.stack(queries[:QUERY_BATCH])
     m_card, m_cpu = dj_masks(q_batch).cpu(), dj_masks(q_batch.cpu())
     cpu_dm = DejavuDeviceMatcher(idx, DJ_SETTINGS, device="cpu")
-    t0 = time.perf_counter()
     v_cpu = cpu_dm.recognize_waveforms(q_batch.cpu())
-    cpu_s = time.perf_counter() - t0
     v_card = dm.recognize_waveforms(q_batch)
     C = m_cpu.shape[-1]
     packed = pack_hashes_from_masks(m_cpu, dj_max_peaks(C), DJ_SETTINGS["fan_value"])
@@ -2000,9 +1471,8 @@ def dejavu_phases(dev, tracks, lengths, names, queries, q_ids, q_offs, unseen, a
     agreement = float((m_card == m_cpu).float().mean())
     same_songs = sum(dj_song(a) == dj_song(b) for a, b in zip(v_card, v_cpu))
     emit({"phase": "dejavu_card_vs_cpu", "queries": QUERY_BATCH, "mask_agreement": agreement,
-          "mask_peaks_card": int(m_card.sum()), "mask_peaks_cpu": int(m_cpu.sum()),
           "verdict_songs_equal": same_songs, "verdicts_equal": v_card == v_cpu,
-          "match_impl_equal_on_same_hashes": impl_equal, "cpu_batch_s": cpu_s})
+          "match_impl_equal_on_same_hashes": impl_equal})
     if agreement < MIN_MASK_AGREEMENT:
         fail(f"dejavu masks on the card and the CPU agree in {agreement} of cells")
     if same_songs < MIN_DJ_VERDICTS_CARD_VS_CPU:
@@ -2023,19 +1493,12 @@ def dejavu_phases(dev, tracks, lengths, names, queries, q_ids, q_offs, unseen, a
     unet = seeded_unet(UNET_SEED)
     unet_hook = unet_denoiser(copy.deepcopy(unet).to(dev))
     dm_unet = DejavuDeviceMatcher(idx, DJ_SETTINGS, spec_denoiser=unet_hook, device=dev)
-    dm_unet.match_waveforms(q_batch[:8])  # cuDNN's first choice of algorithms
     unet_sets = {}
     for label, d in dirs.items():
         files = [os.path.join(d, f) for f in sorted(os.listdir(d))]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        acc = dj_exps.compute_accuracy_batched(files, dm, dm_unet, batch_size=QUERY_BATCH)
-        unet_sets[label] = {"accuracy": acc,
-                            "queries_per_s": len(files) / (time.perf_counter() - t0)}
+        unet_sets[label] = dj_exps.compute_accuracy_batched(files, dm, dm_unet, batch_size=QUERY_BATCH)
     few = aug_default[:DJ_UNET_CPU_QUERIES]
-    t0 = time.perf_counter()
     m_few_cpu = dj_masks(few, denoiser=unet_denoiser(unet))
-    unet_cpu_s = time.perf_counter() - t0
     unet_agreement = float((dj_masks(few.to(dev), denoiser=unet_hook).cpu() == m_few_cpu).float().mean())
     del unet
     demucs = seeded_demucs(DEMUCS_SEED).to(dev)
@@ -2048,17 +1511,15 @@ def dejavu_phases(dev, tracks, lengths, names, queries, q_ids, q_offs, unseen, a
         j = i if i < DJ_DEMUCS_QUERIES // 2 else half + i
         np.save(os.path.join(demucs_dir, f"{oracle_gts[j]}.{j:04d}.npy"), oracle_queries[j].cpu().numpy())
     files = [os.path.join(demucs_dir, f) for f in sorted(os.listdir(demucs_dir))]
-    t0 = time.perf_counter()
     demucs_acc = dj_exps.compute_accuracy(files, oracle_djv, djv_demucs)
-    demucs_qps = len(files) / (time.perf_counter() - t0)
     emit({"phase": "dejavu_denoised", "unet": "base=64, seeded", "demucs": "published, seeded",
-          "unet_sets": unet_sets, "unet_card_vs_cpu_mask_agreement": unet_agreement,
-          "unet_card_vs_cpu_queries": DJ_UNET_CPU_QUERIES, "unet_cpu_masks_s": unet_cpu_s,
+          "unet_accuracy": unet_sets, "unet_card_vs_cpu_mask_agreement": unet_agreement,
+          "unet_card_vs_cpu_queries": DJ_UNET_CPU_QUERIES,
           "demucs_per_file_queries": len(files), "demucs_corpus_tracks": DJ_ORACLE_TRACKS,
-          "demucs_accuracy": demucs_acc, "demucs_queries_per_s": demucs_qps})
-    for label, row in list(unet_sets.items()) + [("demucs", {"accuracy": demucs_acc})]:
-        if set(row["accuracy"]) != {"No Denoising", "With Denoising", "Mix Pipeline"}:
-            fail(f"dejavu_denoised {label}: accuracies {sorted(row['accuracy'])}")
+          "demucs_accuracy": demucs_acc})
+    for label, acc in list(unet_sets.items()) + [("demucs", demucs_acc)]:
+        if set(acc) != {"No Denoising", "With Denoising", "Mix Pipeline"}:
+            fail(f"dejavu_denoised {label}: accuracies {sorted(acc)}")
     if unet_agreement < MIN_MASK_AGREEMENT:
         fail(f"dejavu UNet-denoised masks on the card and the CPU agree in {unet_agreement} of cells")
 
@@ -2068,18 +1529,12 @@ def dejavu_phases(dev, tracks, lengths, names, queries, q_ids, q_offs, unseen, a
     for label, kw in (("unet", {"spec_denoiser": unet_hook}), ("demucs", {"wave_denoiser": demucs_hook})):
         den = Dejavu({}, DJ_SETTINGS, db=djv_plain.db, denoising=True, denoising_model=label,
                      device=dev, **kw)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        metrics = dj_exps.compute_peaks_metrics_batched(q_paths, djv_plain, den, cleans_path=cleans_dir)
-        peaks[label] = {"metrics": metrics, "queries_per_s": len(q_paths) / (time.perf_counter() - t0)}
+        metrics = peaks[label] = dj_exps.compute_peaks_metrics_batched(
+            q_paths, djv_plain, den, cleans_path=cleans_dir)
         if set(metrics) != set(dj_exps.PEAKS_METRICS) or not all(map(math.isfinite, metrics.values())):
             fail(f"dejavu peak metrics ({label}) missing or not finite: {metrics}")
-    emit({"phase": "dejavu_peaks_metrics", "queries": len(q_paths), "arms": peaks})
-    del demucs, demucs_hook, unet_hook, dm_unet
-
-    # ---- 29. where the time of a match batch goes
-    emit(profile_call("dejavu match_waveforms, 128 queries", lambda: dm.match_waveforms(q_batch)))
-    return {"phase": "dejavu_phases", "seconds": time.perf_counter() - t_start}, idx
+    emit({"phase": "dejavu_peaks_metrics", "queries": len(q_paths), "metrics": peaks})
+    return idx
 
 
 # ---- 30-34. the last slice: mp3 corpora and the FMA selection, the parallel
@@ -2123,32 +1578,28 @@ def environment(**values):
 
 def quietly(fn):
     """``fn()`` with its standard output kept (an entry point prints a line
-    per file it skips): (result, seconds, output). The output goes to
-    standard error if ``fn`` raises."""
+    per file it skips): (result, output). The output goes to standard error
+    if ``fn`` raises."""
     buf = io.StringIO()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(buf):
             out = fn()
-        torch.cuda.synchronize()
     except BaseException:
         print(buf.getvalue()[-4000:], file=sys.stderr)
         raise
-    return out, time.perf_counter() - t0, buf.getvalue()
+    return out, buf.getvalue()
 
 
 def native_io_phase() -> dict:
     """Phase 30, part one: the g++ build of ``native/*.cc`` and whether the
     codecs load. Fails if the library does not build."""
-    t0 = time.perf_counter()
     try:
         lib = native.build()
         native.library()
         mp3_dec = native.mp3_available()
     except (RuntimeError, OSError) as e:
         fail(f"the native decoders did not build or load: {e}")
-    line = {"phase": "native_io", "build_seconds": time.perf_counter() - t0, "library": lib,
+    line = {"phase": "native_io", "library": lib,
             "libmpg123": mp3_dec, "libmp3lame": mp3_encode.available(),
             "libmp3lame_error": mp3_encode.load_error()}
     line["mp3"] = line["libmpg123"] and line["libmp3lame"]
@@ -2165,7 +1616,7 @@ def write_fma_tree(dev, root: str, use_mp3: bool) -> dict:
     preprocessing ``main`` (through its entry point), then the first
     FMA_WRITTEN selected tracks (in the table's order) written as files: synthetic 30 s
     tracks at 22.05 kHz, mp3 (or WAV where a codec is missing) encoded on
-    CODEC_THREADS threads. Returns the line's set-up numbers."""
+    CODEC_THREADS threads. Returns the tree's counts and the written paths."""
     fma, dataset = os.path.join(root, "fma"), os.path.join(root, "dataset")
     os.makedirs(os.path.join(fma, "fma_metadata"))
     os.makedirs(dataset)
@@ -2177,9 +1628,7 @@ def write_fma_tree(dev, root: str, use_mp3: bool) -> dict:
                          [FMA_SECONDS] * n)
     with open(os.path.join(dataset, "fma_large_preprocessed.txt"), "w") as fh:
         fh.write("\n".join(fma_preprocessing.track_id_to_path(t) for t in tids) + "\n")
-    t0 = time.perf_counter()
     fma_preprocessing.main()
-    preprocess_s = time.perf_counter() - t0
     table = fma_preprocessing.preprocessed_table()
     ts = fma_preprocessing.TestSet(table)
     ts.remove_short_tracks()
@@ -2201,23 +1650,13 @@ def write_fma_tree(dev, root: str, use_mp3: bool) -> dict:
 
             scipy.io.wavfile.write(path, FMA_SR, (np.clip(x, -1, 1) * 32767).astype(np.int16))
 
-    synth_s = encode_s = 0.0
     with cf.ThreadPoolExecutor(CODEC_THREADS) as pool:
         for s in range(0, len(written), 64):
-            t0 = time.perf_counter()
             block = synth_tracks_device(FMA_SEED, range(s, s + 64), FMA_SECONDS * FMA_SR, FMA_SR,
                                         device=dev)
             block = (0.8 * block).cpu().numpy()
-            t1 = time.perf_counter()
             list(pool.map(encode, zip(written[s : s + 64], block)))
-            synth_s += t1 - t0
-            encode_s += time.perf_counter() - t1
-    sizes = [os.path.getsize(p) for p in written]
-    return {"fma_root": fma, "dataset": dataset, "metadata_rows": n, "selected": len(selected),
-            "written": written, "preprocess_main_s": preprocess_s, "synth_s": synth_s,
-            "encode_s": encode_s, "encode_tracks_per_s": len(written) / encode_s,
-            "encode_x_realtime": len(written) * FMA_SECONDS / encode_s,
-            "bytes_per_track": float(np.mean(sizes))}
+    return {"metadata_rows": n, "selected": len(selected), "written": written}
 
 
 def fma_eval_phase(dev, tmp: str, io_line: dict) -> dict:
@@ -2245,52 +1684,40 @@ def fma_eval_phase(dev, tmp: str, io_line: dict) -> dict:
                          MFPA_DATASET_DIR=os.path.join(root, "dataset")):
             tree = write_fma_tree(dev, root, use_mp3)
             files = tree.pop("written")
-            t0 = time.perf_counter()
             decoded = native.read_wav_batch(files, num_threads=CODEC_THREADS)
-            decode_s = time.perf_counter() - t0
             if any(d is None for d in decoded):
                 fail("read_wav_batch failed on a written file")
-            samples = sum(int(d[0].shape[1]) for d in decoded)
             del decoded
-            io_line.update({k: tree[k] for k in ("encode_s", "encode_tracks_per_s",
-                                                 "encode_x_realtime", "bytes_per_track")})
-            io_line.update({"decode_files": len(files), "decode_threads": CODEC_THREADS,
-                            "decode_s": decode_s, "decode_files_per_s": len(files) / decode_s,
-                            "decode_samples_per_s": samples / decode_s,
-                            "decode_x_realtime": samples / FMA_SR / decode_s, "format": ext})
+            io_line.update({"decode_files": len(files), "format": ext})
             emit(io_line)
 
             os.chdir(root)  # the Dejavu database is the working directory's ./dejavu_fma
             afp_db_paths["audfprint"] = db_path
             queries_paths["cleans"] = cleans
             an = AudfprintPeaks(afp_settings["audfprint"], device=dev)
-            with cf.ThreadPoolExecutor(8) as pool:  # create_fp_database's decode pool alone
-                t0 = time.perf_counter()
-                list(pool.map(an._load, files))
-                decode_alone_s = time.perf_counter() - t0
             K.reset_launch_counts()
-            _, index_s, index_out = quietly(
+            HC.reset_launch_counts()
+            _, index_out = quietly(
                 lambda: audfprint_exps.main(["--action", "index", "--device", str(dev)]))
             launches_index = dict(K.LAUNCHES)
-            _, dj_index_s, dj_out = quietly(
-                lambda: dj_exps.main(["--action", "index", "--device", str(dev)]))
+            hashes_counted("fma_index")
+            _, dj_out = quietly(lambda: dj_exps.main(["--action", "index", "--device", str(dev)]))
             if dict(K.LAUNCHES) != launches_index:
                 fail("the Dejavu index launched a prune kernel")
-            _, queries_s, q_out = quietly(
-                lambda: generate_queries.main(["--queries", "cleans", "--save"]))
+            _, q_out = quietly(lambda: generate_queries.main(["--queries", "cleans", "--save"]))
             q_files = sorted(glob.glob(os.path.join(cleans, "*.pkl")))
 
             ht = HashTable(db_path)
             dm = DeviceMatcher(ht, device=dev)
             K.reset_launch_counts()
             HC.reset_launch_counts()
-            acc, ident_s, _ = quietly(lambda: compute_accuracy_batched(
+            acc, _ = quietly(lambda: compute_accuracy_batched(
                 q_files, ht, an, batch_size=QUERY_BATCH, shifts=SHIFTS, device_matcher=dm,
                 device=dev))
             launches_ident = dict(K.LAUNCHES)
             hashes_counted("fma_identify")
             djv = Dejavu(afp_db_paths["dejavu"], DJ_SETTINGS, "set", device=dev)
-            dj_acc, dj_ident_s, _ = quietly(lambda: dj_exps.compute_accuracy(q_files, djv, djv))
+            dj_acc, _ = quietly(lambda: dj_exps.compute_accuracy(q_files, djv, djv))
             n_songs = len(djv.db.get_songs())
     finally:
         os.chdir(cwd)
@@ -2300,23 +1727,15 @@ def fma_eval_phase(dev, tmp: str, io_line: dict) -> dict:
         "phase": "fma_eval", "format": ext, "metadata_rows": tree["metadata_rows"],
         "selected": tree["selected"], "files_written": len(files),
         "track_seconds": FMA_SECONDS, "sample_rate": FMA_SR,
-        "synth_s": tree["synth_s"], "preprocess_main_s": tree["preprocess_main_s"],
         "audfprint_index": {
-            "seconds": index_s, "tracks_per_s": len(files) / index_s,
             "tracks_indexed": len(ht.names), "paths_skipped": index_out.count("error with"),
-            "decode_alone_s": decode_alone_s, "decode_share": decode_alone_s / index_s,
-            "total_hashes": ht.totalhashes(), "table": [int(1 << ht.hashbits), int(ht.depth)],
-            "launches": launches_index},
-        "dejavu_index": {
-            "seconds": dj_index_s, "tracks_per_s": len(files) / dj_index_s, "songs": n_songs,
-            "paths_skipped": dj_out.count("Failed fingerprinting")},
-        "clean_queries": {"seconds": queries_s, "written": len(q_files),
+            "table": [int(1 << ht.hashbits), int(ht.depth)], "launches": launches_index},
+        "dejavu_index": {"songs": n_songs, "paths_skipped": dj_out.count("Failed fingerprinting")},
+        "clean_queries": {"written": len(q_files),
                           "missing_skipped": q_out.count("A file is missing")},
         "audfprint_identify": {"accuracy": acc["No Denoising"], "queries": len(q_files),
-                               "seconds": ident_s, "queries_per_s": len(q_files) / ident_s,
                                "shifts": SHIFTS, "launches": launches_ident},
         "dejavu_identify": {"accuracy": dj_acc["No Denoising"], "queries": len(q_files),
-                            "seconds": dj_ident_s, "queries_per_s": len(q_files) / dj_ident_s,
                             "path": "per file: FileRecognizer over SQLite"},
     }
     emit(line)
@@ -2351,7 +1770,7 @@ def parallel_phase(dev, noise_bank, ir_bank, queries, ht, dm, dj_idx) -> dict:
     mesh's audfprint call."""
     params = test_pipelines_parameters["default_parameters"]
     fp = AugmentFP(noise_bank, SR, parameters=params, impulse_response_dir=ir_bank, device=dev)
-    train_batches, _, _ = training_batches()
+    train_batches, _ = training_batches()
     runs = {}
     # both runs take cuDNN's deterministic algorithms, so that what differs
     # is DDP's doing (the default ones read up to 5e-7 apart at step 3)
@@ -2366,14 +1785,8 @@ def parallel_phase(dev, noise_bank, ir_bank, queries, ht, dm, dj_idx) -> dict:
             with tempfile.TemporaryDirectory() as ckpt:
                 trainer = Trainer(UNet(1, 1, rate=0.05, base=64), iter(()), 1, iter(()), 1, TRAIN_LR,
                                   2, ckpt, input_type="spec", augmenter=fp, device=dev)
-            losses, ms = [], []
-            for b in train_batches[:PARALLEL_STEPS]:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                losses.append(float(trainer.train_step(b)["loss"]))
-                ms.append((time.perf_counter() - t0) * 1e3)
-            runs[label] = {"losses": losses, "step_ms": ms,
-                           "module": type(trainer._train_model).__name__}
+            losses = [float(trainer.train_step(b)["loss"]) for b in train_batches[:PARALLEL_STEPS]]
+            runs[label] = {"losses": losses, "module": type(trainer._train_model).__name__}
             del trainer
             torch.cuda.empty_cache()
     finally:
@@ -2395,9 +1808,7 @@ def parallel_phase(dev, noise_bank, ir_bank, queries, ht, dm, dj_idx) -> dict:
     K.reset_launch_counts()
     HC.reset_launch_counts()
     meshed = DeviceMatcher(ht, device=dev, mesh=mesh)
-    t0 = time.perf_counter()
     mesh_v = meshed.match_waveforms(q, shifts=SHIFTS)
-    mesh_s = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     hashes_counted("mesh_match", len(mesh))  # one a shard
     dj_single = DejavuDeviceMatcher(dj_idx, DJ_SETTINGS, device=dev).match_waveforms(q)
@@ -2407,12 +1818,9 @@ def parallel_phase(dev, noise_bank, ir_bank, queries, ht, dm, dj_idx) -> dict:
         "unet": "base=64, rate 0.05, float32, cuDNN deterministic", "batch": TP.BATCH_SIZE,
         "samples": TRAIN_SAMPLES,
         "steps": PARALLEL_STEPS, "runs": runs, "max_loss_diff": loss_diff,
-        "ddp_overhead_ms": float(np.median(runs["ddp"]["step_ms"][1:])
-                                 - np.median(runs["single"]["step_ms"][1:])),
         "mesh": [str(d) for d in mesh], "replicas": len(meshed._replicas),
         "sharded_augment_examples": MESH_QUERIES, "sharded_augment_mismatched_cells": aug_mismatch,
-        "audfprint_mesh_equal": mesh_v == single, "audfprint_mesh_queries_per_s": MESH_QUERIES / mesh_s,
-        "dejavu_mesh_equal": dj_mesh == dj_single,
+        "audfprint_mesh_equal": mesh_v == single, "dejavu_mesh_equal": dj_mesh == dj_single,
         "mesh_matches": sum(v[0] == "MATCH" for v in mesh_v), "launches": launches,
     }
     emit(line)
@@ -2471,12 +1879,12 @@ def monitoring_phase(dev, noise_bank, ir_bank, ckpt_root: str, tmp: str) -> None
     monitoring ``Trainer``: ``_log_tensorboard`` and ``_log_media`` (a
     ``SummaryWriter`` where tensorboard imports, a recording writer
     otherwise; the triplets must be finite, of the spectrogram's shape, at
-    most 1); ``multi_resolution_cqt_loss`` at 128 x 3 s (ms; the card
+    most 1); ``multi_resolution_cqt_loss`` at 128 x 3 s (finite; the card
     against the CPU on 8 examples, 1e-5); ``generate_audios.main`` on that
     checkpoint: its wavs written."""
     params = test_pipelines_parameters["default_parameters"]
     fp = AugmentFP(noise_bank, SR, parameters=params, impulse_response_dir=ir_bank, device=dev)
-    _, val_batches, _ = training_batches()
+    _, val_batches = training_batches()
     try:
         from torch.utils.tensorboard import SummaryWriter
 
@@ -2489,10 +1897,7 @@ def monitoring_phase(dev, noise_bank, ir_bank, ckpt_root: str, tmp: str) -> None
                       device=dev, writer=writer)
     val, metrics = trainer.validation_epoch()
     trainer._log_tensorboard(trainer.epoch_start, {"loss": val["loss"]}, val, metrics)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     trainer._log_media(10)
-    media_s = time.perf_counter() - t0
     images = [c for c in writer.calls if c[0] == "image"]
     shape = (257, 1 + TRAIN_SAMPLES // 256, 1)
     bad = [c[1] for c in images if c[2].shape != shape or not np.isfinite(c[2]).all()
@@ -2504,7 +1909,6 @@ def monitoring_phase(dev, noise_bank, ir_bank, ckpt_root: str, tmp: str) -> None
 
     x = torch.from_numpy(val_batches[0][:CQT_BATCH]).to(dev)
     y = fp.apply(x, fp.draw(CQT_BATCH, x.shape[-1], prng.key(0)))
-    cqt_ms = gpu_ms(lambda: cqt.multi_resolution_cqt_loss(y, x), 3)
     card = [float(v) for v in cqt.multi_resolution_cqt_loss(y[:CQT_CPU_EXAMPLES], x[:CQT_CPU_EXAMPLES])]
     cpu = [float(v) for v in cqt.multi_resolution_cqt_loss(y[:CQT_CPU_EXAMPLES].cpu(),
                                                            x[:CQT_CPU_EXAMPLES].cpu())]
@@ -2515,17 +1919,16 @@ def monitoring_phase(dev, noise_bank, ir_bank, ckpt_root: str, tmp: str) -> None
     full = [float(v) for v in cqt.multi_resolution_cqt_loss(y, x)]
 
     out_dir = os.path.join(tmp, "generated_audios")
-    written, demo_s, _ = quietly(lambda: generate_audios.main(
+    written, _ = quietly(lambda: generate_audios.main(
         ["--model", "unet", "--checkpoint", ckpt, "--out", out_dir, "--seconds", "3",
          "--device", str(dev)]))
     line = {
         "phase": "monitoring", "writer": kind, "scalars": sum(c[0] == "scalar" for c in writer.calls),
         "images": len(images), "image_shape": list(shape), "bad_images": bad,
-        "log_media_s": media_s, "val_loss": val["loss"], "val_psnr": metrics["psnr"],
-        "cqt_batch": CQT_BATCH, "cqt_samples": TRAIN_SAMPLES, "cqt_ms": cqt_ms,
+        "cqt_batch": CQT_BATCH, "cqt_samples": TRAIN_SAMPLES,
         "cqt_losses": full, "cqt_card_vs_cpu_rel": cqt_err, "cqt_cpu_examples": CQT_CPU_EXAMPLES,
         "cqt_magnitude_card_vs_cpu_of_max": mag_err,
-        "generate_audios_s": demo_s, "generate_audios_files": sorted(map(os.path.basename, written)),
+        "generate_audios_files": sorted(map(os.path.basename, written)),
     }
     emit(line)
     if len(images) != 9 or bad or line["scalars"] < 3:
@@ -2561,16 +1964,13 @@ def app_phase(dev) -> None:
     model = streamlit_app.define_model(StandIn(), device=dev)
     x = 0.8 * synth_tracks_device(APP_SEED, range(APP_BATCH), APP_SECONDS * APP_SR, APP_SR,
                                   device=dev).cpu().numpy()[:, None, :]
-    t0 = time.perf_counter()
     outs = streamlit_app.process_audio(x, [APP_SR] * APP_BATCH, model)
-    first_ms = (time.perf_counter() - t0) * 1e3
-    warm_ms = wall_ms(lambda: streamlit_app.process_audio(x, [APP_SR] * APP_BATCH, model), 3)
     decoded = [scipy.io.wavfile.read(io.BytesIO(o)) for o in outs]
     peaks = [float(np.abs(y.astype(np.float64) / 32767).max()) for _, y in decoded]
     line = {"phase": "app", "device": str(model.device), "batch": APP_BATCH,
             "seconds_each": APP_SECONDS, "sample_rate": APP_SR, "parameters": model.parameters,
-            "first_call_ms": first_ms, "process_audio_ms": warm_ms, "peaks": peaks,
-            "rates": [sr for sr, _ in decoded]}
+            "peaks": peaks, "rates": [sr for sr, _ in decoded]}
+
     emit(line)
     if model.device.type != "cuda" or len(outs) != APP_BATCH:
         fail(f"app: {len(outs)} outputs on {model.device}")
@@ -2600,13 +2000,12 @@ SCALE_DEMUCS_TRAIN_BATCH = 16  # the JAX proof's Demucs run
 SCALE_ORACLE_N = 32
 SCALE_INGEST_STATS = (
     "total_hashes", "stored_hashes", "reservoir_dropped_pct", "buckets_at_depth",
-    "buckets_over_depth", "max_bucket_count", "ingest_tracks_per_sec", "hash_overflow",
+    "buckets_over_depth", "max_bucket_count", "hash_overflow",
 )
 SCALE_MATCH_KEYS = ("accuracy", "accuracy_den", "accuracy_mix", "accuracy_den_demucs",
-                    "accuracy_mix_demucs", "n_queries", "match_qps", "match_den_qps",
-                    "match_den_demucs_qps", "wall_s")
+                    "accuracy_mix_demucs", "n_queries")
 DJ_SCALE_KEYS = ("total_rows", "total_rows_stored", "bucket_depth", "index_mb", "rows_dropped",
-                 "index_upload_s", "hash_overflow", "ingest_tracks_per_sec")
+                 "hash_overflow")
 DEMO_ARGS = ("--tracks", "16", "--epochs", "2", "--queries", "16")  # its quick size
 
 
@@ -2626,8 +2025,7 @@ def _ulps(a: np.ndarray, b: np.ndarray) -> float:
 
 def prng_phase(dev) -> dict:
     """The threefry functions on the card against the CPU over 2^20 draws
-    each: every bit equal but ``normal``'s (the devices' ``log1p``), and
-    the card's time for them."""
+    each: every bit equal but ``normal``'s (the devices' ``log1p``)."""
     keys = {d: prng.split(prng.key(AUGMENT_SEED, d), PRNG_KEYS) for d in ("cpu", dev)}
     shape = (1024,)
     fns = {
@@ -2641,7 +2039,7 @@ def prng_phase(dev) -> dict:
     line = {"phase": "prng", "keys": PRNG_KEYS, "draws_per_function": PRNG_KEYS * 1024}
     for name, fn in fns.items():
         want, got = fn(keys["cpu"]).numpy(), fn(keys[dev]).cpu().numpy()
-        entry = {"card_ms": gpu_ms(lambda: fn(keys[dev]), 3), "elements": int(want.size)}
+        entry = {"elements": int(want.size)}
         if name == "normal":
             entry["max_ulp"] = _ulps(got, want)
             entry["max_abs"] = float(np.abs(got - want).max())
@@ -2660,16 +2058,11 @@ def corpus_phase(dev) -> dict:
     """64 tracks of the scale corpus (30 s) built on the card and on the
     CPU from the same (seed, index) keys."""
     idx = np.arange(CORPUS_TRACKS) * 1663 % SCALE_TRACKS
-    t0 = time.perf_counter()
     on_card = synth_tracks_device(SCALE_SEED, idx, 30 * SR, SR, device=dev)
-    torch.cuda.synchronize()
-    card_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
     on_cpu = synth_tracks_device(SCALE_SEED, idx, 30 * SR, SR, device="cpu")
-    cpu_s = time.perf_counter() - t0
     err = float((on_card.cpu() - on_cpu).abs().max()) / float(on_cpu.abs().max())
     line = {"phase": "corpus_card_vs_cpu", "tracks": CORPUS_TRACKS, "seconds": 30,
-            "seed": SCALE_SEED, "max_err_of_peak": err, "card_s": card_s, "cpu_s": cpu_s}
+            "seed": SCALE_SEED, "max_err_of_peak": err}
     emit(line)
     if not err <= MAX_CORPUS_CARD_VS_CPU:
         fail(f"corpus: the card's tracks are {err} of the peak from the CPU's")
@@ -2686,14 +2079,12 @@ def queries_phase(dev, noise_bank, ir_bank) -> dict:
     for d in (dev, torch.device("cpu")):
         fp = AugmentFP(noise_bank, SR, parameters=params, impulse_response_dir=ir_bank, device=d)
         fp.freeze_parameters(AUGMENT_SEED)
-        t0 = time.perf_counter()
         (_, _, crops), = SP.condition_batches(
             SP.corpus_tracks(SCALE_SEED, d), fp, qidx, offsets, QUERY_CHECK_N)
-        out[d.type] = (crops.cpu(), time.perf_counter() - t0)
-    err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+        out[d.type] = crops.cpu()
+    err = float((out["cuda"] - out["cpu"]).abs().max())
     line = {"phase": "queries_card_vs_cpu", "queries": QUERY_CHECK_N,
-            "condition": "default_parameters", "seed": AUGMENT_SEED, "max_abs": err,
-            "card_s": out["cuda"][1], "cpu_s": out["cpu"][1]}
+            "condition": "default_parameters", "seed": AUGMENT_SEED, "max_abs": err}
     emit(line)
     if not err <= MAX_QUERIES_CARD_VS_CPU:
         fail(f"queries: the card's frozen-seed crops are {err} from the CPU's")
@@ -2709,21 +2100,17 @@ BIG_BANK_STEPS = 8
 
 
 def cap_sweep_phase(work: str) -> dict:
-    """``testing/dejavu_cap_sweep`` on a 10,000-track ingest: per cap the
-    CSR figures and accuracy and queries/s per condition; the rows dropped
-    fall as the cap rises, the uncapped index drops none."""
+    """``testing/dejavu_cap_sweep`` on a 10,000-track ingest: the rows
+    dropped fall as the cap rises, the uncapped index drops none and
+    identifies the clean queries (accuracy >= 0.99)."""
     cs_dir = os.path.join(work, "cap_sweep")
     flags = ("--workdir", cs_dir, "--device", "cuda")
-    t0 = time.perf_counter()
     CS.main(["ingest", "--tracks", str(CAP_SWEEP_TRACKS), "--minutes", "60", *flags])
-    ingest_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         report = CS.stage_sweep(CS.parser().parse_args(
             ["sweep", "--caps", CAP_SWEEP_CAPS, "--queries", str(CAP_SWEEP_QUERIES),
              "--conditions", CAP_SWEEP_CONDITIONS, *flags]))
     line = {"phase": "cap_sweep", "tracks": CAP_SWEEP_TRACKS, "queries": CAP_SWEEP_QUERIES,
-            "ingest_s": ingest_s, "sweep_s": time.perf_counter() - t0,
             "total_rows_ingested": report["total_rows_ingested"], "caps": report["caps"]}
     emit(line)
     caps = [report["caps"][c] for c in CAP_SWEEP_CAPS.split(",")]
@@ -2740,9 +2127,8 @@ def big_bank_phase(dev) -> dict:
     256 MB noise bank against the 32-row toy bank. The bank stays the same
     tensor and is not copied per step: the step allocates no more with it
     than with the toy bank, give or take a tenth of the bank."""
-    t0 = time.perf_counter()
     out = big_bank_train.run(BIG_BANK_MB, 32, BIG_BANK_STEPS, dev)
-    line = {"phase": "big_bank", "seconds": time.perf_counter() - t0, **out}
+    line = {"phase": "big_bank", **out}
     emit(line)
     big, toy = out["big"], out["toy"]
     extra = big["allocated_mb_per_step"] - toy["allocated_mb_per_step"]
@@ -2773,16 +2159,15 @@ def dropout_counted(label: str, fn):
 
 
 def counted(label: str, launches: dict, fn):
-    """``fn()`` with the prune counters zeroed just before and read just
-    after into ``launches[label]``; returns (result, seconds)."""
-    torch.cuda.synchronize()
+    """``fn()`` with the prune and hashing counters zeroed just before and
+    the prune counters read just after into ``launches[label]``; returns
+    the result."""
     K.reset_launch_counts()
     HC.reset_launch_counts()
-    t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
     launches[label] = dict(K.LAUNCHES)
-    return out, time.perf_counter() - t0
+    return out
+
 
 
 def require_launches(label: str, launches: dict) -> None:
@@ -2816,36 +2201,23 @@ def scale_phases(dev, work: str) -> dict:
         SP.stage_ingest(scale_args(SP, "ingest", sp_dir, "--minutes", "60"))
         return first
 
-    first, seconds = counted("scale_ingest", launches, ingest)
+    first = counted("scale_ingest", launches, ingest)
     state = SP.load_state(sp_dir)
     emit({"phase": "scale_ingest", "tracks": SCALE_TRACKS, "batch": SCALE_BATCH,
-          "invocations": 2, "first_invocation_tracks": first, "seconds": seconds,
-          "tracks_per_s": SCALE_TRACKS / seconds,
+          "invocations": 2, "first_invocation_tracks": first,
           **{k: state.get(k) for k in SCALE_INGEST_STATS}, "launches": launches["scale_ingest"]})
     if not state.get("ingest_done") or not 0 < first < SCALE_TRACKS:
         fail(f"scale_ingest: done {state.get('ingest_done')}, first invocation {first} tracks")
     if not state["buckets_over_depth"] > 0 or state["hash_overflow"]:
         fail(f"scale_ingest: the table did not saturate or a track overflowed: {state}")
     require_launches("scale_ingest", launches)
-    tracks = SP.corpus_tracks(SCALE_SEED, dev)
-    scratch = HashTable()
-
-    def one_batch():
-        th, counts, _ = SP.ingest_hashes(tracks(np.arange(SCALE_BATCH)))
-        th, counts = th.cpu().numpy(), counts.cpu().numpy()
-        for j in range(SCALE_BATCH):
-            scratch.store(f"t{j:06d}", th[j, : counts[j]])
-
-    emit(profile_call("scale ingest batch, 128 x 30 s, stored in a 2^20 x 100 table", one_batch))
-    del scratch
 
     # ---- 36. scale_match: the 11 conditions, then the UNet and Demucs arms
-    _, seconds = counted("scale_match", launches, lambda: SP.stage_match(scale_args(
+    counted("scale_match", launches, lambda: SP.stage_match(scale_args(
         SP, "match", sp_dir, "--queries", str(SCALE_QUERIES), *match_flags)))
     state = SP.load_state(sp_dir)
     emit({"phase": "scale_match", "queries": SCALE_QUERIES, "shifts": SCALE_SHIFTS,
-          "batch": SCALE_BATCH, "seconds": seconds, "eff_depth": state["eff_depth"],
-          "table_mb": state["table_mb"], "table_upload_s": state["table_upload_s"],
+          "batch": SCALE_BATCH, "eff_depth": state["eff_depth"],
           "conditions": conditions_line(state), "launches": launches["scale_match"]})
     if len(state["conditions"]) != 11:
         fail(f"scale_match ran {sorted(state['conditions'])}")
@@ -2858,23 +2230,21 @@ def scale_phases(dev, work: str) -> dict:
         ("unet", (), SCALE_DENOISED_QUERIES, "cleans,default_parameters"),
         ("demucs", ("--train-batch", str(SCALE_DEMUCS_TRAIN_BATCH)), SCALE_DEMUCS_QUERIES, "bn_m10"),
     ):
-        t0 = time.perf_counter()
         train = lambda: SP.stage_train(scale_args(  # noqa: E731
             SP, "train", sp_dir, "--model", model, "--banks", "dcase", *SCALE_TRAIN, *flags))
         if model == "unet":
             dropout_counted("scale_unet_train", train)
         else:
             train()
-        train_s = time.perf_counter() - t0
         label = f"scale_{model}_denoised"
-        _, seconds = counted(label, launches, lambda: SP.stage_match(scale_args(
+        counted(label, launches, lambda: SP.stage_match(scale_args(
             SP, "match", sp_dir, "--queries", str(queries), "--conditions", conds, "--denoise",
             "--denoise-model", model, *match_flags)))
         state = SP.load_state(sp_dir)
         key = "denoiser_train" if model == "unet" else "denoiser_train_demucs"
         line = conditions_line(state)
         emit({"phase": label, "checkpoint": f"scale_proof train, {model}, 2 epochs x 4 steps",
-              "train": state[key], "train_s": train_s, "queries": queries, "seconds": seconds,
+              "train": state[key], "queries": queries,
               "conditions": {c: line[c] for c in conds.split(",")}, "launches": launches[label]})
         sfx = "" if model == "unet" else "_demucs"
         for c in conds.split(","):
@@ -2888,20 +2258,19 @@ def scale_phases(dev, work: str) -> dict:
         fail(f"scale_unet_denoised: clean mix accuracy {state['conditions']['cleans']}")
 
     # ---- 37. scale_oracle and 38. scale_peaks
-    _, seconds = counted("scale_oracle", launches, lambda: SP.stage_oracle(scale_args(
+    counted("scale_oracle", launches, lambda: SP.stage_oracle(scale_args(
         SP, "oracle", sp_dir, *match_flags, "--oracle-n", str(SCALE_ORACLE_N))))
     state = SP.load_state(sp_dir)
     emit({"phase": "scale_oracle", "queries": SCALE_ORACLE_N, "shifts": SCALE_SHIFTS,
-          "agreement": state["oracle_agreement"], "seconds": seconds,
-          "launches": launches["scale_oracle"]})
+          "agreement": state["oracle_agreement"], "launches": launches["scale_oracle"]})
     if state["oracle_agreement"] != f"{SCALE_ORACLE_N}/{SCALE_ORACLE_N}":
         fail(f"scale_oracle: {state['oracle_agreement']}")
-    _, seconds = counted("scale_peaks", launches, lambda: SP.stage_peaks(scale_args(
+    counted("scale_peaks", launches, lambda: SP.stage_peaks(scale_args(
         SP, "peaks", sp_dir, "--queries", str(SCALE_PEAKS_QUERIES), "--banks", "dcase")))
     state = SP.load_state(sp_dir)
     peaks = {c: {k: v[k] for k in v if k.startswith(("peaks_", "psnr_"))}
              for c, v in state["conditions"].items() if c != "cleans"}
-    emit({"phase": "scale_peaks", "queries": SCALE_PEAKS_QUERIES, "seconds": seconds,
+    emit({"phase": "scale_peaks", "queries": SCALE_PEAKS_QUERIES,
           "conditions": peaks, "launches": launches["scale_peaks"]})
     if len(peaks) != 10 or not all(math.isfinite(x) for row in peaks.values() for x in row.values()):
         fail(f"scale_peaks: {peaks}")
@@ -2914,30 +2283,22 @@ def scale_phases(dev, work: str) -> dict:
 
     # ---- 39-41. Dejavu on the same corpus: no prune kernel on its path
     prune_before = dict(K.LAUNCHES)
-    t0 = time.perf_counter()
     DS.stage_ingest(scale_args(DS, "ingest", dj_dir, "--minutes", "60"))
-    ingest_s = time.perf_counter() - t0
     dj_flags = ("--banks", "dcase")
     # one load and finalize of the 70M-row index, shared by the match, the
     # UNet arm and the oracle (each stage run alone does its own)
-    t0 = time.perf_counter()
     dj_index = DS.load_index(dj_dir)
     dj_index.finalize()
-    finalize_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
     DS.stage_match(scale_args(DS, "match", dj_dir, "--queries", str(SCALE_QUERIES), *dj_flags),
                    index=dj_index)
-    match_s = time.perf_counter() - t0
     state = DS.load_state(dj_dir)
-    emit({"phase": "dejavu_scale_ingest", "tracks": SCALE_TRACKS, "seconds": ingest_s,
-          "tracks_per_s": SCALE_TRACKS / ingest_s, "hash_cap": state["hash_cap"],
-          **{k: state.get(k) for k in DJ_SCALE_KEYS}, "finalize_s": finalize_s,
+    emit({"phase": "dejavu_scale_ingest", "tracks": SCALE_TRACKS, "hash_cap": state["hash_cap"],
+          **{k: state.get(k) for k in DJ_SCALE_KEYS},
           "finalize_shared_by": ["match", "unet_denoised", "oracle"]})
-    emit({"phase": "dejavu_scale_match", "queries": SCALE_QUERIES, "seconds": match_s,
+    emit({"phase": "dejavu_scale_match", "queries": SCALE_QUERIES,
           "conditions": conditions_line(state)})
     if state["conditions"]["cleans"]["accuracy"] < MIN_CLEAN_ACCURACY:
         fail(f"dejavu_scale_match: clean accuracy {state['conditions']['cleans']['accuracy']}")
-    t0 = time.perf_counter()
     DS.stage_match(scale_args(DS, "match", dj_dir, "--queries", str(SCALE_DENOISED_QUERIES),
                               "--conditions", "cleans,default_parameters", "--denoise", "--rerun",
                               "--unet-pkl", os.path.join(sp_dir, "unet.pt"), *dj_flags),
@@ -2945,9 +2306,8 @@ def scale_phases(dev, work: str) -> dict:
     state = DS.load_state(dj_dir)
     line = conditions_line(state)
     emit({"phase": "dejavu_scale_unet_denoised", "checkpoint": "scale_proof train, unet",
-          "queries": SCALE_DENOISED_QUERIES, "seconds": time.perf_counter() - t0,
+          "queries": SCALE_DENOISED_QUERIES,
           "conditions": {c: line[c] for c in ("cleans", "default_parameters")}})
-    t0 = time.perf_counter()
     DS.stage_oracle(scale_args(DS, "oracle", dj_dir, *dj_flags, "--oracle-n", str(SCALE_ORACLE_N)),
                     index=dj_index)
     del dj_index
@@ -2955,7 +2315,7 @@ def scale_phases(dev, work: str) -> dict:
     quiet_report(DS.stage_report, scale_args(
         DS, "report", dj_dir, "--out", os.path.join(work, "dejavu_results.json")))
     emit({"phase": "dejavu_scale_oracle", "queries": SCALE_ORACLE_N,
-          "agreement": state["oracle_agreement"], "seconds": time.perf_counter() - t0,
+          "agreement": state["oracle_agreement"],
           "prune_launches_before": prune_before, "prune_launches_after": dict(K.LAUNCHES)})
     if state["oracle_agreement"] != f"{SCALE_ORACLE_N}/{SCALE_ORACLE_N}":
         fail(f"dejavu_scale_oracle: {state['oracle_agreement']}")
@@ -2965,9 +2325,10 @@ def scale_phases(dev, work: str) -> dict:
 
     # ---- 42. the end-to-end demo at its quick size
     out_dir = os.path.join(work, "demo")
-    (demo, seconds), _ = dropout_counted("demo", lambda: counted(
+    demo, _ = dropout_counted("demo", lambda: counted(
         "demo", launches, lambda: full_pipeline_demo.main([*DEMO_ARGS, "--out", out_dir])))
-    emit({"phase": "full_pipeline_demo", "args": list(DEMO_ARGS), "seconds": seconds,
+    emit({"phase": "full_pipeline_demo", "args": list(DEMO_ARGS),
+
           "train_val_loss": demo["train_val_loss"],
           "accuracy": {c: demo[c]["accuracy"] for c in ("cleans", "bn_0", "full_hard", "reverb")},
           "f1": {c: [demo[c]["peaks"]["f1_score_no_den"], demo[c]["peaks"]["f1_den"]]
@@ -2983,7 +2344,6 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
     dev = torch.device("cuda")
-    t_start = time.perf_counter()
 
     # ---- 1. device
     smi = subprocess.run(
@@ -2992,37 +2352,26 @@ def main() -> None:
     )
     smi_line = smi.stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
-    clk = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    sm_mhz = float(clk.stdout.strip().splitlines()[0])
-    emit({"phase": "device", "name": kind, "nvidia_smi": smi_line,
-          "max_sm_mhz": sm_mhz, "torch": torch.__version__,
+    emit({"phase": "device", "name": kind, "nvidia_smi": smi_line, "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
     # host work that needs neither the kernels nor the card runs beside the
     # phases that do: nvcc, and the host numpy of the banks of phase 6
     pool = cf.ThreadPoolExecutor(3)
-    building = pool.submit(_timed, lambda: _build.build(verbose=True))
-    banking = pool.submit(_timed, lambda: dcase_shaped_banks(hours=BANK_HOURS, device="cpu"))
+    building = pool.submit(_build.build, verbose=True)
+    banking = pool.submit(dcase_shaped_banks, hours=BANK_HOURS, device="cpu")
     pool.submit(training_batches)  # cached: the training phases take them from there
 
     # ---- 2a. prng and 2b. the corpus: the card's draws are the CPU's
-    t0 = time.perf_counter()
     prng_phase(dev)
     corpus_phase(dev)
-    emit({"phase": "draw_checks", "seconds": time.perf_counter() - t0})
 
     # ---- 2. build
-    t0 = time.perf_counter()
-    lib, build_s = building.result()
+    lib = building.result()
     _build.library()
-    emit({"phase": "build", "seconds": build_s, "waited_s": time.perf_counter() - t0,
-          "library": lib})
+    emit({"phase": "build", "library": lib})
 
     # ---- corpus and queries (set-up, on the card)
-    t0 = time.perf_counter()
     lengths = track_lengths(N_TRACKS, CORPUS_SEED)
     tracks = make_tracks(CORPUS_SEED, N_TRACKS, lengths, dev)
     r = np.random.default_rng(CORPUS_SEED + 1)
@@ -3033,9 +2382,6 @@ def main() -> None:
     u_len = track_lengths(N_UNSEEN, UNSEEN_SEED)
     unseen_tracks = make_tracks(UNSEEN_SEED, N_UNSEEN, u_len, dev)
     unseen = torch.stack(crops_of(unseen_tracks, range(N_UNSEEN), [SR] * N_UNSEEN))
-    torch.cuda.synchronize()
-    emit({"phase": "corpus", "tracks": N_TRACKS, "seconds": time.perf_counter() - t0,
-          "samples": int(lengths.sum())})
 
     # ---- 3. kernels vs plain at the path's shapes
     q_batch = torch.stack(queries[:QUERY_BATCH])
@@ -3055,57 +2401,55 @@ def main() -> None:
     x_scale = P.prune_input(scale_waves)
     if tuple(x_scale.shape) != (SCALE_BATCH, 256, 938):
         fail(f"unexpected scale ingest shape {tuple(x_scale.shape)}")
-    at_query = check_kernels("query", x_query, None, sm_mhz)
-    at_stacked = check_kernels("stacked", x_stacked, vf_stacked, sm_mhz)
-    at_ingest = check_kernels("ingest", x_ingest, vf_ing, sm_mhz)
-    at_scale = check_kernels("scale_ingest", x_scale, None, sm_mhz)
-    del x_scale
+    at_query = check_kernels("query", x_query, None)
+    at_stacked = check_kernels("stacked", x_stacked, vf_stacked)
+    at_ingest = check_kernels("ingest", x_ingest, vf_ing)
+    at_scale = check_kernels("scale_ingest", x_scale, None)
+    del x_scale, x_ingest
     emit({"phase": "kernels", "query": at_query, "stacked": at_stacked,
           "ingest": at_ingest, "scale_ingest": at_scale})
 
-    # ---- 3a. Flax's starting weights and the dropout kernel at the training shape
+    # ---- 3a. the dropout kernel at the training shape
     at_train = flax_init_dropout_phase(dev)
 
-    # ---- 3b. the hashing kernel vs the plain chain, 8 s and 30 s x 4 shifts
-    at_hash = hash_stage_check(dev, {"query": q_batch, "long_30s": scale_waves})
+    # ---- 3b. the hashing kernel vs the plain chain: 8 s and 30 s x 4 shifts
+    # at the matcher's budget, and an ingest batch in one shift at the budget
+    # hashes_batch gives it
+    at_hash = hash_stage_check(dev, {
+        "query": (q_batch, SHIFTS, 4096, None),  # match_waveforms' max_query_hashes
+        "long_30s": (scale_waves, SHIFTS, 4096, None),
+        "ingest": (ing, 1, None, valid),
+    })
     emit({"phase": "hash_stage", **at_hash})
-    del scale_waves
+    del scale_waves, ing
 
-    # ---- 4. ingest (launch counters zeroed just before the main path)
+    # ---- 4. ingest (launch counters zeroed just before the main path): the
+    # hashing kernel once a batch
     K.reset_launch_counts()
+    HC.reset_launch_counts()
     analyzer = AudfprintPeaks(afp_settings["audfprint"], device=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     ht = create_fp_database(
         tracks, None, analyzer=analyzer, batch_size=INGEST_BATCH,
         hash_tab=HashTable(), names=names, device=dev,
     )
-    ingest_s = time.perf_counter() - t0
     launches_ingest = dict(K.LAUNCHES)
-    t0 = time.perf_counter()
+    hashes_counted("ingest", -(-N_TRACKS // INGEST_BATCH))
     dm = DeviceMatcher(ht, device=dev)
-    torch.cuda.synchronize()
     emit({
-        "phase": "ingest", "tracks": N_TRACKS, "seconds": ingest_s,
-        "tracks_per_s": N_TRACKS / ingest_s, "total_hashes": ht.totalhashes(),
+        "phase": "ingest", "tracks": N_TRACKS, "total_hashes": ht.totalhashes(),
         "table": [int(1 << ht.hashbits), int(ht.depth)], "eff_depth": dm.eff_depth,
-        "eff_maxtime": dm.eff_maxtime, "device_table_bytes": dm.table_bytes(),
-        "matcher_setup_s": time.perf_counter() - t0, "launches": launches_ingest,
+        "launches": launches_ingest,
     })
     if (ht.table.shape != (1 << 20, 100)) or len(ht.names) != N_TRACKS:
         fail("the ingest did not fill a 2^20 x 100 table with every track")
 
-    # ---- 5. match (ingest hashes with its own chain: the kernel counts from here)
+    # ---- 5. match
     HC.reset_launch_counts()
-    t0 = time.perf_counter()
     acc = compute_accuracy_batched(
         queries, ht, analyzer, batch_size=QUERY_BATCH, shifts=SHIFTS,
         device_matcher=dm, names=[names[int(t)] for t in q_ids], device=dev,
     )
-    match_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
     unseen_v = dm.match_waveforms(unseen, shifts=SHIFTS)
-    unseen_s = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     launches_match = {k: launches[k] - launches_ingest[k] for k in launches}
     hashes_counted("match", N_QUERIES // QUERY_BATCH + 1)  # the batches, the unseen batch
@@ -3127,9 +2471,7 @@ def main() -> None:
         fail("the plain re-run launched a kernel")
     emit({
         "phase": "match", "queries": N_QUERIES, "shifts": SHIFTS, "accuracy": acc,
-        "seconds": match_s, "queries_per_s": N_QUERIES / match_s,
-        "unseen_queries": N_UNSEEN, "unseen_nomatch_rate": nomatch,
-        "unseen_queries_per_s": N_UNSEEN / unseen_s, "launches": launches_match,
+        "unseen_queries": N_UNSEEN, "unseen_nomatch_rate": nomatch, "launches": launches_match,
         "plain_rerun_verdicts_equal": plain_v == kernel_v,
     })
     if acc["No Denoising"] < MIN_CLEAN_ACCURACY:
@@ -3141,97 +2483,60 @@ def main() -> None:
     if plain_v != kernel_v:
         fail("plain prunes on the card gave other verdicts than the kernels")
 
-
     # ---- 6. banks: the paper-shaped synthetic noise and IR pools
-    t0 = time.perf_counter()
-    (noise_bank, ir_bank), banks_s = banking.result()
+    noise_bank, ir_bank = banking.result()
     pool.shutdown()
     noise_bank, ir_bank = noise_bank.to(dev), ir_bank.to(dev)
-    torch.cuda.synchronize()
-    emit({
-        "phase": "banks", "seconds": banks_s, "waited_and_uploaded_s": time.perf_counter() - t0,
-        "hours": BANK_HOURS,
-        "noise_rows": noise_bank.num_clips, "row_length": noise_bank.row_length,
-        "scenes": int(noise_bank.scene_starts.shape[0]), "irs": ir_bank.num_irs,
-        "ir_length": int(ir_bank.irs.shape[1]),
-        "noise_bytes": noise_bank.clips.numel() * 4, "ir_bytes": ir_bank.irs.numel() * 4,
-    })
+    emit({"phase": "banks", "hours": BANK_HOURS, "noise_rows": noise_bank.num_clips,
+          "scenes": int(noise_bank.scene_starts.shape[0]), "irs": ir_bank.num_irs})
 
     # ---- 7. augment: the 1,024 clean crops under the 10 conditions
     K.reset_launch_counts()
     clean = torch.stack(queries)
-    augmented, augment_line = {}, {}
+    augmented, snr_err = {}, {}
     for cond, params in test_pipelines_parameters.items():
         fp = AugmentFP(noise_bank, SR, parameters=params, impulse_response_dir=ir_bank, device=dev)
-        # two passes over the set: the first also grows the allocator's pool
-        # and makes the cuFFT plans; the rate is the second's
-        _, first_s = augment_condition(fp, clean)
-        augmented[cond], seconds = augment_condition(fp, clean)
-        augment_line[cond] = {
-            "first_pass_seconds": first_s, "seconds": seconds,
-            "examples_per_s": N_QUERIES / seconds,
-            "peak_err": check_augmented(cond, fp, clean, augmented[cond]),
-        }
+        augmented[cond] = augment_condition(fp, clean)
+        check_augmented(cond, fp, clean, augmented[cond])
         if cond.startswith("bn_"):
-            snr = achieved_snr(fp, clean[:AUGMENT_BATCH], augmented[cond][:AUGMENT_BATCH])
-            augment_line[cond]["snr"] = snr
-            if not snr["max_err_db"] <= MAX_SNR_ERR_DB:
-                fail(f"{cond}: the mix is {snr['max_err_db']} dB away from the drawn SNR")
-    emit({"phase": "augment", "examples": N_QUERIES, "batch": AUGMENT_BATCH,
-          "seed": AUGMENT_SEED, "conditions": augment_line})
-
-    # the chain's variants on one batch under default_parameters, the card
-    # against the CPU on the same draws, the stages and the two conv routes
+            err = snr_err[cond] = snr_error_db(
+                fp, clean[:AUGMENT_BATCH], augmented[cond][:AUGMENT_BATCH])
+            if not err <= MAX_SNR_ERR_DB:
+                fail(f"{cond}: the mix is {err} dB away from the drawn SNR")
+    # the card against the CPU on the same draws, and the direct filter route
     default = test_pipelines_parameters["default_parameters"]
-    x256 = clean[:AUGMENT_BATCH]
-    variants = {}
-    for label, kw in (("fast_fused", {}), ("fast_unfused", {"fuse_lti": False}),
-                      ("exact", {"fast_chain": False})):
-        fp = AugmentFP(noise_bank, SR, parameters=default, impulse_response_dir=ir_bank,
-                       device=dev, **kw)
-        draws = fp.draw_indexed(range(AUGMENT_BATCH), x256.shape[-1], prng.key(AUGMENT_SEED))
-        variants[label] = {
-            "apply_ms": wall_ms(lambda: fp.apply(x256, draws), 5),
-            "draw_and_apply_ms": wall_ms(
-                lambda: fp.batch_augment_indexed(x256, range(AUGMENT_BATCH), prng.key(AUGMENT_SEED)), 5),
-        }
-        if label == "fast_unfused":
-            stages = stage_times(fp, x256)
     on_card = AugmentFP(noise_bank, SR, parameters=default, impulse_response_dir=ir_bank, device=dev)
     on_cpu = AugmentFP(noise_bank, SR, parameters=default, impulse_response_dir=ir_bank, device="cpu")
     draws16 = on_card.draw_indexed(range(16), clean.shape[-1], prng.key(AUGMENT_SEED))
     card_vs_cpu = float(
         (on_card.apply(clean[:16], draws16).cpu() - on_cpu.apply(clean[:16].cpu(), draws16)).abs().max())
-    emit({"phase": "augment_detail", "parameters": "default_parameters",
-          "batch": AUGMENT_BATCH, "variants": variants, "stages_ms": stages,
-          "card_vs_cpu_max_abs": card_vs_cpu, "card_vs_cpu_examples": 16,
-          "conv_routes": conv_routes(dev)})
+    del on_card, on_cpu
+    emit({"phase": "augment", "examples": N_QUERIES, "batch": AUGMENT_BATCH,
+          "seed": AUGMENT_SEED, "conditions": sorted(augmented), "snr_err_db": snr_err,
+          "card_vs_cpu_max_abs": card_vs_cpu, "card_vs_cpu_examples": 16})
     if not card_vs_cpu <= MAX_CARD_VS_CPU:
         fail(f"the chain on the card is {card_vs_cpu} away from the CPU on the same draws")
-    del on_cpu
+    check_conv_route(dev)
     # ---- 7a. the frozen-seed queries made on the card and on the CPU
     queries_phase(dev, noise_bank, ir_bank)
 
     # ---- 8. conditions: identify every condition's queries
     q_names = [names[int(t)] for t in q_ids]
-    accuracy = {"cleans": {"accuracy": acc["No Denoising"], "queries_per_s": N_QUERIES / match_s}}
+    accuracy = {"cleans": acc["No Denoising"]}
     HC.reset_launch_counts()
     for cond, out in augmented.items():
-        t0 = time.perf_counter()
-        got = compute_accuracy_batched(
+        accuracy[cond] = compute_accuracy_batched(
             list(out), ht, analyzer, batch_size=QUERY_BATCH, shifts=SHIFTS,
             device_matcher=dm, names=q_names, device=dev,
-        )
-        accuracy[cond] = {"accuracy": got["No Denoising"],
-                          "queries_per_s": N_QUERIES / (time.perf_counter() - t0)}
+        )["No Denoising"]
     launches_conditions = dict(K.LAUNCHES)
     hashes_counted("conditions", len(augmented) * (N_QUERIES // QUERY_BATCH))
     emit({"phase": "conditions", "queries": N_QUERIES, "shifts": SHIFTS,
-          "conditions": accuracy, "launches": launches_conditions})
+          "accuracy": accuracy, "launches": launches_conditions})
     for cond, floor in MIN_ACCURACY.items():
-        if accuracy[cond]["accuracy"] < floor:
-            fail(f"{cond} accuracy {accuracy[cond]['accuracy']} < {floor}")
-    if accuracy["bn_m10"]["accuracy"] > accuracy["bn_p10"]["accuracy"]:
+        if accuracy[cond] < floor:
+            fail(f"{cond} accuracy {accuracy[cond]} < {floor}")
+    if accuracy["bn_m10"] > accuracy["bn_p10"]:
         fail("more noise (bn_m10) identified better than less (bn_p10)")
     for k, n in launches_conditions.items():
         if n <= 0:
@@ -3240,26 +2545,7 @@ def main() -> None:
     augmented_host = {cond: out.cpu() for cond, out in augmented.items()}  # for Dejavu
     del augmented
 
-    # ---- 9. where the time goes: one match batch, one ingest batch, one
-    # batch_augment call
-    emit(profile_call("match_waveforms, 128 queries, 4 shifts",
-                      lambda: dm.match_waveforms(q_batch, shifts=SHIFTS)))
-    scratch = HashTable()
-    ing_names = names[:INGEST_BATCH]
-    emit(profile_call("ingest_batch, 64 tracks",
-                      lambda: analyzer.ingest_batch(scratch, ing_names, ing, valid_samples=valid)))
-    t0 = time.perf_counter()
-    hashes = analyzer.hashes_batch(ing, shifts=1, valid_samples=valid)
-    t1 = time.perf_counter()
-    for n, h in zip(ing_names, hashes):
-        scratch.store(n, h)
-    t2 = time.perf_counter()
-    emit({"phase": "profile", "call": "ingest_batch split, 64 tracks",
-          "hashes_batch_ms": (t1 - t0) * 1e3, "host_store_ms": (t2 - t1) * 1e3})
-    emit(profile_call("batch_augment, 256 x 8 s, default_parameters",
-                      lambda: on_card.batch_augment(x256)))
-
-    # ---- 10. the UNet at full width, three precisions, card against CPU
+    # ---- 10. the UNet at full width, card against CPU
     unet_phase(dev, P.spectrogram_frontend(aug_default[:UNET_BATCH]))
 
     # ---- 11. denoised: both analyzers through compute_accuracy_batched
@@ -3269,42 +2555,26 @@ def main() -> None:
         spec_denoiser=hook, device=dev,
     )
     aug_batch = aug_default[:QUERY_BATCH]
-    # one batch's masks with and without the hook (also warms cuDNN up)
+    # one batch's masks with and without the hook
     masks_plain = P.find_peaks_batch(aug_batch)
     masks_den = P.find_peaks_batch(aug_batch, denoiser=hook)
     agreement = float((masks_plain == masks_den).float().mean())
-    dm.match_waveforms(aug_batch, shifts=SHIFTS, denoiser=hook)
-    torch.cuda.synchronize()
     K.reset_launch_counts()
     HC.reset_launch_counts()
     den_names = q_names[:DENOISED_QUERIES]
     denoised = {}
     for label, qs in (("cleans", queries[:DENOISED_QUERIES]),
                       ("default_parameters", list(aug_default))):
-        t0 = time.perf_counter()
-        got = compute_accuracy_batched(
+        denoised[label] = compute_accuracy_batched(
             qs, ht, analyzer, analyzer_den, batch_size=QUERY_BATCH, shifts=SHIFTS,
             device_matcher=dm, names=den_names, device=dev,
         )
-        denoised[label] = {"accuracy": got,
-                           "queries_per_s": DENOISED_QUERIES / (time.perf_counter() - t0)}
     launches_denoised = dict(K.LAUNCHES)
     hashes_counted("denoised", 2 * 2 * (DENOISED_QUERIES // QUERY_BATCH))  # 2 sets x 2 arms
-    t0 = time.perf_counter()
-    arm = compute_accuracy_batched(
-        list(aug_default), ht, analyzer_den, batch_size=QUERY_BATCH, shifts=SHIFTS,
-        device_matcher=dm, names=den_names, device=dev,
-    )
-    arm_qps = DENOISED_QUERIES / (time.perf_counter() - t0)
     emit({"phase": "denoised", "queries": DENOISED_QUERIES, "shifts": SHIFTS,
-          "unet": "base=64, identity weights", "sets": denoised,
-          "denoised_arm_alone_queries_per_s": arm_qps,
-          "denoised_arm_alone_accuracy": arm["No Denoising"],
-          "undenoised_queries_per_s": N_QUERIES / match_s,
-          "mask_agreement": agreement, "mask_peaks": int(masks_plain.sum()),
-          "launches": launches_denoised})
-    for label, row in denoised.items():
-        a = row["accuracy"]
+          "unet": "base=64, identity weights", "accuracy": denoised,
+          "mask_agreement": agreement, "launches": launches_denoised})
+    for label, a in denoised.items():
         if set(a) != {"No Denoising", "With Denoising", "Mix Pipeline"}:
             fail(f"{label}: compute_accuracy_batched returned {sorted(a)}")
         if abs(a["With Denoising"] - a["No Denoising"]) > ACCURACY_SLACK:
@@ -3328,13 +2598,10 @@ def main() -> None:
         q_paths.append(os.path.join(tmp, "default_parameters", f"q{i:04d}.npy"))
         np.save(q_paths[-1], aug_default[i].cpu().numpy())
     K.reset_launch_counts()
-    t0 = time.perf_counter()
     metrics = compute_peaks_metrics_batched(
         q_paths, analyzer, analyzer_den, cleans_path=os.path.join(tmp, "cleans"))
-    metrics_s = time.perf_counter() - t0
     launches_metrics = dict(K.LAUNCHES)
     emit({"phase": "peaks_metrics", "queries": DENOISED_QUERIES, "metrics": metrics,
-          "seconds": metrics_s, "queries_per_s": DENOISED_QUERIES / metrics_s,
           "launches": launches_metrics})
     if set(metrics) != set(PEAKS_METRICS) or not all(math.isfinite(v) for v in metrics.values()):
         fail(f"peak metrics missing or not finite: {metrics}")
@@ -3345,10 +2612,6 @@ def main() -> None:
     for k, n in launches_metrics.items():
         if n <= 0:
             fail(f"{k} kernel did not launch in the peak metrics")
-
-    # ---- 9 again: where the time of a denoised match batch goes
-    emit(profile_call("match_waveforms with the UNet, 128 queries, 4 shifts",
-                      lambda: dm.match_waveforms(aug_batch, shifts=SHIFTS, denoiser=hook)))
     del hook, analyzer_den, masks_plain, masks_den
     torch.cuda.empty_cache()
 
@@ -3366,19 +2629,15 @@ def main() -> None:
     del trained
     torch.cuda.empty_cache()
 
-    # ---- 16-21. Demucs: the published model in three precisions, as the
-    # waveform denoiser of the identification and the peak metrics, one
-    # train step card against CPU, training in two precisions, the trained
-    # checkpoint as the denoiser, streaming
-    t_demucs = time.perf_counter()
+    # ---- 16-21. Demucs: the published model, as the waveform denoiser of
+    # the identification and the peak metrics, one train step card against
+    # CPU, training in two precisions, the trained checkpoint as the
+    # denoiser, streaming
     cleans_dir = os.path.join(tmp, "cleans")
     demucs = demucs_phase(dev, aug_default[:DEMUCS_BATCH])
     seeded_den = demucs_denoised_phase("seeded", demucs, ht, dm, analyzer, queries, aug_default,
                                        den_names, q_paths, cleans_dir)
-    demucs_hook = demucs_denoiser(demucs)
-    emit(profile_call("match_waveforms with the Demucs, 128 queries, 4 shifts",
-                      lambda: dm.match_waveforms(demucs_hook(aug_batch), shifts=SHIFTS)))
-    del demucs, demucs_hook
+    del demucs
     torch.cuda.empty_cache()
     demucs_train_step_check(dev)
     ckpt_dir = tempfile.TemporaryDirectory()
@@ -3390,22 +2649,20 @@ def main() -> None:
     del trained_demucs
     ckpt_dir.cleanup()
     streamer_phase(dev)
-    emit({"phase": "demucs_phases", "seconds": time.perf_counter() - t_demucs})
 
-    # ---- 22-29. Dejavu, whose path reaches no prune kernel
+    # ---- 22-28. Dejavu, whose path reaches no prune kernel
     prune_before = dict(K.LAUNCHES)
-    dj_line, dj_idx = dejavu_phases(dev, tracks, lengths, names, queries, q_ids, q_offs, unseen,
-                                    augmented_host, q_paths, cleans_dir, tmp)
-    dj_line.update(prune_launches_before=prune_before, prune_launches_after=dict(K.LAUNCHES))
-    emit(dj_line)
-    if dj_line["prune_launches_after"] != prune_before:
+    dj_idx = dejavu_phases(dev, tracks, lengths, names, queries, q_ids, q_offs, unseen,
+                           augmented_host, q_paths, cleans_dir, tmp)
+    emit({"phase": "dejavu_phases", "prune_launches_before": prune_before,
+          "prune_launches_after": dict(K.LAUNCHES)})
+    if dict(K.LAUNCHES) != prune_before:
         fail(f"the Dejavu phases launched a prune kernel: {prune_before} -> {dict(K.LAUNCHES)}")
     del augmented_host
 
     # ---- 30-34. the native decoders, the FMA selection indexed and
     # identified from mp3 paths, the parallel layer, monitoring and the CQT
     # loss, the demo CLI, the app
-    t_last = time.perf_counter()
     io_line = native_io_phase()
     launches_fma = fma_eval_phase(dev, tmp, io_line)
     launches_mesh, _ = dropout_counted("parallel", lambda: parallel_phase(
@@ -3413,16 +2670,13 @@ def main() -> None:
     monitoring_phase(dev, noise_bank, ir_bank, unet_ckpt_dir.name, tmp)
     unet_ckpt_dir.cleanup()
     app_phase(dev)
-    emit({"phase": "last_slice_phases", "seconds": time.perf_counter() - t_last})
     tmp_dir.cleanup()
 
     # ---- 35-42. the reference-scale proofs and the end-to-end demo
-    t_scale = time.perf_counter()
     del tracks, unseen_tracks, queries, unseen, aug_default
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as work:
         launches_scale = scale_phases(dev, work)
-    emit({"phase": "scale_phases", "seconds": time.perf_counter() - t_scale})
 
     # ---- 44. the training step with a 256 MB noise bank
     dropout_counted("big_bank", lambda: big_bank_phase(dev))
@@ -3451,8 +2705,6 @@ def main() -> None:
             "launches_fma_identify": launches_fma["identify"][kname],
             "launches_mesh_match": launches_mesh[kname],
             **{f"launches_{label}": n[kname] for label, n in launches_scale.items()},
-            "max_abs_err": max(q["max_abs_err"], i["max_abs_err"], st["max_abs_err"],
-                               sc["max_abs_err"]),
             "ms": st["kernel_ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
             "library_ms": None, "shape": "stacked",
@@ -3465,7 +2717,7 @@ def main() -> None:
             "scale_ingest_plain_ms": sc["plain_ms"], "scale_ingest_bound_ms": sc["bound_ms"],
             "scale_ingest_bound_by": sc["bound_by"],
         })
-    drop_f32, drop_bf16 = at_train["kernel"]["float32"], at_train["kernel"]["bfloat16"]
+    drop_f32, drop_bf16 = at_train["step_forward"]["float32"], at_train["step_forward"]["bfloat16"]
     kernels.append({
         "name": "dropout_threefry", "route": "cuda",
         "source": "musicfpaugment_torch/csrc/dropout_threefry.cu",
@@ -3473,21 +2725,15 @@ def main() -> None:
         "replaces": "musicfpaugment_tpu/models/unet.py:115",
         "launches": sum(DROPOUT_LAUNCHES.values()),
         **{f"launches_{label}": n for label, n in DROPOUT_LAUNCHES.items()},
-        "launches_per_train_step": at_train["bf16_step"]["launches_per_step"],
-        "max_abs_err": max(drop_f32["max_abs_err"], drop_bf16["max_abs_err"]),
-        "ms": drop_bf16["step_forward"]["ms"], "plain_ms": drop_bf16["step_forward"]["plain_ms"],
-        "bound_ms": drop_bf16["step_forward"]["bound_ms"],
-        "bound_by": drop_bf16["step_forward"]["bound_by"], "library_ms": None,
+        "launches_per_train_step": at_train["launches_per_train_step"],
+        "ms": drop_bf16["ms"], "plain_ms": drop_bf16["plain_ms"],
+        "bound_ms": drop_bf16["bound_ms"], "bound_by": drop_bf16["bound_by"], "library_ms": None,
         "shape": "the five sites of one bfloat16 training step's forward, 128 x 3 s, base 64",
-        "elements": drop_bf16["elements"],
-        "float32_ms": drop_f32["step_forward"]["ms"], "float32_plain_ms": drop_f32["step_forward"]["plain_ms"],
-        "float32_bound_ms": drop_f32["step_forward"]["bound_ms"],
-        "float32_bound_by": drop_f32["step_forward"]["bound_by"],
-        "torch_dropout_ms_other_masks": drop_bf16["step_forward"]["torch_dropout_ms"],
-        "bf16_train_step_ms": at_train["bf16_step"]["kernel_ms"],
-        "bf16_train_step_plain_route_ms": at_train["bf16_step"]["plain_ms"],
+        "float32_ms": drop_f32["ms"], "float32_plain_ms": drop_f32["plain_ms"],
+        "float32_bound_ms": drop_f32["bound_ms"], "float32_bound_by": drop_f32["bound_by"],
+        "torch_dropout_ms_other_masks": drop_bf16["torch_dropout_ms"],
     })
-    hq, hl = at_hash["query"], at_hash["long_30s"]
+    hq, hl, hi = at_hash["query"], at_hash["long_30s"], at_hash["ingest"]
     kernels.append({
         "name": "union_hashes", "route": "cuda",
         "source": "musicfpaugment_torch/csrc/union_hashes.cu",
@@ -3495,14 +2741,15 @@ def main() -> None:
         "replaces": "musicfpaugment_tpu/afp/audfprint/landmarks.py:255",
         "launches": sum(HASH_LAUNCHES.values()),
         **{f"launches_{label}": n for label, n in HASH_LAUNCHES.items()},
-        "mismatch_rows": hq["mismatch_rows"] + hl["mismatch_rows"],
+        "mismatch_rows": hq["mismatch_rows"] + hl["mismatch_rows"] + hi["mismatch_rows"],
         "ms": hq["kernel_ms"], "bound_ms": hq["bound_ms"], "bound_by": "bytes",
         # the plain version is the PyTorch chain the kernel replaced
         "plain_ms": hq["library_ms"], "library_ms": hq["library_ms"], "shape": "query",
         "long_30s_ms": hl["kernel_ms"], "long_30s_bound_ms": hl["bound_ms"],
         "long_30s_library_ms": hl["library_ms"],
+        "ingest_ms": hi["kernel_ms"], "ingest_bound_ms": hi["bound_ms"],
+        "ingest_library_ms": hi["library_ms"], "ingest_out_len": hi["out_len"],
     })
-    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi_line, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -170,15 +170,6 @@ class AudfprintPeaks:
         )
         return masks, seen[0]
 
-    def hashes_from_masks(self, masks: torch.Tensor):
-        """(B, F, C) masks -> ((B, max_hashes, 2) int32, (B, max_hashes)
-        bool), with the static pads of the JAX package: <= maxpksperframe
-        peaks per column rounded up to 128, 3 pairs per peak."""
-        max_peaks = lm.shift_max_peaks(int(masks.shape[-1]), self.maxpksperframe)
-        return lm.hashes_from_masks_batched(
-            masks, max_peaks=max_peaks, max_hashes=max_peaks * lm.MAXPAIRSPERPEAK
-        )
-
     def hashes_batch(
         self,
         waveforms: Waveform,
@@ -187,8 +178,9 @@ class AudfprintPeaks:
     ) -> List[np.ndarray]:
         """(B, T) waveforms -> list of B (N_i, 2) unique sorted (time, hash)
         int32 arrays. Shift s drops ``int(s / shifts * n_hop)`` leading
-        samples; all shifts are pruned as one stacked batch; the cross-shift
-        dedup is a host ``np.unique``."""
+        samples; all shifts are pruned as one stacked batch, and their union
+        is ``landmarks.union_hashes`` with a budget that truncates nothing
+        (one kernel launch on the card), read back once."""
         waveforms = self._as_batch(waveforms)
         n_shifts = max(1, shifts if shifts is not None else self.shifts)
         vsamp = None
@@ -208,27 +200,15 @@ class AudfprintPeaks:
             valid_samples=vsamp,
             denoiser=self._spec_hook(),
         )
-        per_shift = []  # per shift: B arrays of (N, 2)
-        for masks in masks_by_shift:
-            th, valid = self.hashes_from_masks(masks)
-            th, valid = th.cpu().numpy(), valid.cpu().numpy()
-            per_shift.append([t[v] for t, v in zip(th, valid)])
-        out = []
-        for b in range(waveforms.shape[0]):
-            allh = np.concatenate([s[b] for s in per_shift], axis=0)
-            if allh.shape[0] == 0:
-                out.append(allh.astype(np.int32).reshape(0, 2))
-                continue
-            packed = (allh[:, 0].astype(np.uint64) << np.uint64(32)) + allh[
-                :, 1
-            ].astype(np.uint64)
-            uniq = np.unique(packed)
-            out.append(
-                np.stack(
-                    [uniq >> np.uint64(32), uniq & np.uint64(0xFFFFFFFF)], axis=1
-                ).astype(np.int32)
-            )
-        return out
+        budget = lm.MAXPAIRSPERPEAK * sum(
+            lm.shift_max_peaks(int(m.shape[-1]), self.maxpksperframe)
+            for m in masks_by_shift
+        )
+        times, hashes, n_valid = lm.union_hashes(
+            masks_by_shift, self.maxpksperframe, budget
+        )
+        th = torch.stack([times, hashes], dim=-1).cpu().numpy()
+        return [th[b, :n] for b, n in enumerate(n_valid.cpu().tolist())]
 
     # ------------------------------------------------------------ parity API
 

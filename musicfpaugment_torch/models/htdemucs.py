@@ -30,7 +30,8 @@ sine shift, ``rewrite=False`` and the branches' merged layers (a depth at
 which the frequency axis would fall to the kernel's size). In evaluation, an input
 shorter than ``segment`` seconds is padded to it and the output cropped
 back, as published; a longer one is taken at its own length. The JAX
-package has no such model: ``tests/plain_htdemucs.py`` is the reference.
+package has no such model: ``portbench/ref/models/htdemucs.py`` is the
+reference.
 """
 
 from __future__ import annotations

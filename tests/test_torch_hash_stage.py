@@ -6,8 +6,9 @@ dispatch to it) against the per-shift chain of ``hashes_from_masks_batched``,
 ``sort_dedup_hashes`` and ``compact_valid_first`` bit for bit, padding and
 ``n_valid`` included, and against a numpy set reference. On the card
 (``cuda`` marker, skipped without one), the kernel of ``hashes_cuda.py``
-against the plain function bit for bit. The file imports no JAX, so it runs
-on the card:
+against the plain function bit for bit, and the analyzer's ``hashes_batch``
+(one launch a call) against the same call on the CPU. The file imports no
+JAX, so it runs on the card:
 
     python -m pytest tests/test_torch_hash_stage.py --noconftest -q
 """
@@ -334,3 +335,46 @@ def test_kernel_launches_once_a_call_and_checks_its_inputs(cuda_device):
         odd = [np.zeros((4, 24, 250), bool)] * 4  # rows of 6,000 bytes: aligned, F is not
         hashes_cuda.union_hashes_cuda(stacked_masks(odd, cuda_device), P, 4096)
     assert hashes_cuda.LAUNCHES["union_hashes"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shifts", [1, 4])
+def test_hashes_batch_launches_once_and_equals_cpu(cuda_device, shifts, monkeypatch):
+    """The analyzer's ``hashes_batch`` (the ingest's hashing) over a
+    mixed-length batch with one silent row: one kernel launch a call, and
+    the same call on the CPU, array for array. The CPU call is given the
+    card's peak masks (the two devices' FFTs round apart in a few cells)."""
+    from musicfpaugment_torch.afp.audfprint import AudfprintPeaks, hashes_cuda
+    from musicfpaugment_torch.afp.audfprint import analyzer as analyzer_mod
+    from musicfpaugment_torch.afp.audfprint.analyzer import pad_waveform_batch
+    from musicfpaugment_torch.testing.parameters import afp_settings
+
+    r = np.random.default_rng(13)
+    waves = []
+    for seconds in (8.0, 3.5, 6.25, 2.0, 5.0):
+        t = np.arange(int(seconds * 8000)) / 8000
+        w = sum(np.sin(2 * np.pi * f * t + r.uniform(0, 6)) for f in r.uniform(100, 3000, 12))
+        waves.append((0.05 * w * (r.random(t.size) < 0.7)).astype(np.float32))
+    waves[3][:] = 0.0  # silent: no peaks, no hashes
+    batch, valid = pad_waveform_batch(waves)
+    card_masks = []
+    prune = analyzer_mod.find_peaks_shifts
+
+    def card_masks_everywhere(waveforms, n_shifts, **kw):
+        if waveforms.is_cuda:
+            card_masks[:] = prune(waveforms, n_shifts, **kw)
+            return card_masks
+        return [m.cpu() for m in card_masks]
+
+    monkeypatch.setattr(analyzer_mod, "find_peaks_shifts", card_masks_everywhere)
+    settings = afp_settings["audfprint"]
+    card = AudfprintPeaks(settings, device=cuda_device)
+    cpu = AudfprintPeaks(settings, device="cpu")
+    got = card.hashes_batch(batch.to(cuda_device), shifts=shifts, valid_samples=valid)
+    assert hashes_cuda.LAUNCHES["union_hashes"] == 1
+    want = cpu.hashes_batch(batch, shifts=shifts, valid_samples=valid)
+    assert len(card_masks) == shifts and len(got) == len(want) == len(waves)
+    assert len(want[3]) == 0 and all(len(w) for i, w in enumerate(want) if i != 3)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == np.int32 and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
