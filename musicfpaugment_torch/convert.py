@@ -25,11 +25,11 @@ import torch
 
 from musicfpaugment_torch.afp.audfprint.hash_table import HashTable
 from musicfpaugment_torch.augment.banks import IRBank, NoiseBank
-from musicfpaugment_torch.device import DeviceLike, resolve_device
+from musicfpaugment_torch.device import DeviceLike, cudnn_measured, resolve_device
 from musicfpaugment_torch.models.demucs import Demucs
 from musicfpaugment_torch.models.htdemucs import HTDemucs
 from musicfpaugment_torch.models.unet import UNet
-from musicfpaugment_torch.utils.profiling import annotate
+from musicfpaugment_torch.utils.profiling import annotate, count
 
 
 def hash_table_from_arrays(
@@ -93,6 +93,28 @@ def ir_bank_from_arrays(
     if irs.ndim != 2 or lengths.shape != (irs.shape[0],):
         raise ValueError("irs must be (N, L) and lengths (N,)")
     return IRBank(irs, lengths, int(sample_rate))
+
+
+# ---------------------------------------------------------- denoiser hooks
+
+
+def _measured_hook(model: torch.nn.Module) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``model``'s forward as a denoiser hook: float32 out, under
+    ``torch.inference_mode`` and ``device.cudnn_measured`` (TF32 off,
+    cuDNN's engine for each convolution problem chosen by timing, once a
+    problem a process). A call on an input shape the hook has not met
+    before counts ``denoiser.tuned_shapes``: those are the calls that may
+    pay cuDNN's timing."""
+    shapes = set()
+
+    def hook(x: torch.Tensor) -> torch.Tensor:
+        with annotate("denoiser.forward"), torch.inference_mode(), cudnn_measured():
+            if x.shape not in shapes:
+                shapes.add(x.shape)
+                count("denoiser.tuned_shapes")
+            return model(x).to(torch.float32)
+
+    return hook
 
 
 # ------------------------------------------------------------------- UNet
@@ -222,17 +244,12 @@ def unet_state_dict_to_flax(state_dict: Mapping) -> Tuple[Dict, Dict]:
 
 def unet_denoiser(model: UNet) -> Callable[[torch.Tensor], torch.Tensor]:
     """The spectrogram hook of ``model``: (B, F, C) normalised magnitudes ->
-    (B, F, C) float32, in ``eval()`` mode under ``torch.inference_mode``, on
-    the device the model is on. Give it to ``AudfprintPeaks(...,
+    (B, F, C) float32, in ``eval()`` mode, on the device the model is on
+    (:func:`_measured_hook`). Give it to ``AudfprintPeaks(...,
     denoising=True, denoising_model="unet", spec_denoiser=...)`` or to
     ``DeviceMatcher.match_waveforms(denoiser=...)``."""
     model.eval()
-
-    def hook(sgram: torch.Tensor) -> torch.Tensor:
-        with annotate("denoiser.forward"), torch.inference_mode():
-            return model(sgram).to(torch.float32)
-
-    return hook
+    return _measured_hook(model)
 
 
 # ------------------------------------------------------------------ Demucs
@@ -391,17 +408,12 @@ def demucs_state_dict_to_flax(state_dict: Mapping) -> Dict:
 
 def demucs_denoiser(model: Demucs) -> Callable[[torch.Tensor], torch.Tensor]:
     """The waveform hook of ``model``: (B, T) -> (B, T) float32, in
-    ``eval()`` mode under ``torch.inference_mode``, on the device the model
-    is on. Give it to ``AudfprintPeaks(..., denoising=True,
+    ``eval()`` mode, on the device the model is on (:func:`_measured_hook`).
+    Give it to ``AudfprintPeaks(..., denoising=True,
     denoising_model="demucs", wave_denoiser=...)``."""
     model.eval()
     model.lstm.lstm.flatten_parameters()
-
-    def hook(wave: torch.Tensor) -> torch.Tensor:
-        with annotate("denoiser.forward"), torch.inference_mode():
-            return model(wave).to(torch.float32)
-
-    return hook
+    return _measured_hook(model)
 
 
 # ------------------------------------------------------------- HTDemucs
@@ -409,17 +421,12 @@ def demucs_denoiser(model: Demucs) -> Callable[[torch.Tensor], torch.Tensor]:
 
 def htdemucs_denoiser(model: HTDemucs) -> Callable[[torch.Tensor], torch.Tensor]:
     """The waveform hook of a one-source, mono ``model``: (B, T) -> (B, T)
-    float32, in ``eval()`` mode under ``torch.inference_mode``, on the
-    device the model is on; the model's forward holds TF32 off in cuDNN and
-    cuBLAS. Give it to ``AudfprintPeaks(..., denoising=True,
+    float32, in ``eval()`` mode, on the device the model is on
+    (:func:`_measured_hook`); the model's forward holds TF32 off in cuBLAS
+    too. Give it to ``AudfprintPeaks(..., denoising=True,
     denoising_model="htdemucs", wave_denoiser=...)``."""
     if len(model.sources) != 1 or model.audio_channels != 1:
         raise ValueError(f"an HTDemucs denoiser has one source and one audio channel, not "
                          f"{len(model.sources)} and {model.audio_channels}")
     model.eval()
-
-    def hook(wave: torch.Tensor) -> torch.Tensor:
-        with annotate("denoiser.forward"), torch.inference_mode():
-            return model(wave).to(torch.float32)
-
-    return hook
+    return _measured_hook(model)

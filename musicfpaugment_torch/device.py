@@ -45,11 +45,15 @@ def cudnn_tf32(allow: bool, benchmark: Optional[bool] = None):
 
 
 # cuDNN engines timed for each new convolution problem under
-# ``cudnn_measured``: the fewest that find the fast ones at the UNet's
-# training step (128 x 257 x 94 spectrograms, an H100). There the first
-# candidate alone is the heuristic's FFT tiling (a 668 ms step); the fastest
-# of the first 2 ran the step in 331 ms (326-332 ms for the first 10), and
-# timing them added 3.3 s to the first step (36.7 s for the first 10).
+# ``cudnn_measured``: the fewest that find the fast ones at both shapes it
+# was chosen from, on an H100. At the UNet's training step (128 x 257 x 94
+# spectrograms) the first candidate alone is the heuristic's FFT tiling (a
+# 668 ms step); the fastest of the first 2 ran the step in 331 ms (326-332
+# ms for the first 10), and timing them added 3.3 s to the first step
+# (36.7 s for the first 10). At the UNet's identify forward (128 x 257 x
+# 251 and x 250) the first candidate is FFT tiling too (488 ms a forward);
+# the first 2 gave 329 ms (the same for the first 3, 4 and 10), and timing
+# them added 3.5 s to the first forward (28.7 s for the first 10).
 MEASURED_ENGINES = 2
 
 

@@ -1,8 +1,8 @@
 """cuDNN's flags around the trainer's convolutions: the step's forward and
 backward, validation and the media triplet run under
 ``device.cudnn_measured`` (TF32 off, engines chosen by timing); the
-augmenter's filter convolutions and the models called outside the trainer
-keep cuDNN's heuristic; every flag is restored, also after a step that
+augmenter's filter convolutions and the models called on their own keep
+cuDNN's heuristic; every flag is restored, also after a step that
 raises; ``trainer.tuned_shapes`` counts the steps of a shape not met
 before. The spies record the flags the convolutions see (on the CPU the
 flags are set and read as on the card; cuDNN does not run).
@@ -110,8 +110,10 @@ def test_validation_and_media_triplet_are_measured(tmp_path):
 
 @pytest.mark.parametrize("kind", ["unet", "demucs"])
 def test_models_outside_the_trainer_keep_the_heuristic(kind):
-    """``UNet.forward`` and ``Demucs.forward`` called on their own (the
-    identify hooks' route) see TF32 off and ``benchmark`` off."""
+    """``UNet.forward`` and ``Demucs.forward`` called on their own (not
+    through an identify hook, which times its engines:
+    ``tests/test_torch_identify_convs.py``) see TF32 off and ``benchmark``
+    off."""
     torch.manual_seed(0)
     if kind == "unet":
         model, x = UNet(1, 1, base=4), torch.rand(2, 33, 16)
