@@ -76,8 +76,8 @@ def read(
 ) -> Tuple[List[np.ndarray], int, str]:
     """Audio as int16-scaled channels: a pkl, npy or wav file or an array ->
     mono at ``sample_rate``, times 32767, with waveform denoising first when
-    ``denoising_model`` is a waveform kind ("demucs", "htdemucs"). Returns
-    (channels, sample rate, upper-case content SHA1).
+    ``denoising_model`` is a waveform kind (``denoising.WAVEFORM_DENOISERS``).
+    Returns (channels, sample rate, upper-case content SHA1).
 
     The waveform hook gets a (1, T) tensor on ``device`` (its model's) and
     its result comes back as numpy. ``int16_scale=False`` returns the raw

@@ -7,10 +7,10 @@ from __future__ import annotations
 from typing import Sequence
 
 SPECTROGRAM_DENOISERS = ("unet",)
-WAVEFORM_DENOISERS = ("demucs", "htdemucs")
+WAVEFORM_DENOISERS = ("demucs", "htdemucs", "bs_roformer")
 # every kind, in audfprint's order of naming them; Dejavu names the
 # spectrogram kind first
-DENOISING_MODELS = ("demucs", "unet", "htdemucs")
+DENOISING_MODELS = ("demucs", "unet", "htdemucs", "bs_roformer")
 DEJAVU_ORDER = SPECTROGRAM_DENOISERS + WAVEFORM_DENOISERS
 
 

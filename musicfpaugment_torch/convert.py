@@ -12,8 +12,9 @@ back the other way. :func:`unet_denoiser` makes of a :class:`UNet` the
 spectrogram hook that the analyzer and the matcher take.
 :func:`demucs_state_dict_from_flax`, :func:`demucs_state_dict_to_flax` and
 :func:`demucs_denoiser` do the same for a :class:`Demucs` and its waveform
-hook; :func:`htdemucs_denoiser` makes the waveform hook of an
-:class:`HTDemucs` (the JAX package has none).
+hook; :func:`htdemucs_denoiser` and :func:`bs_roformer_denoiser` make the
+waveform hooks of an :class:`HTDemucs` and a :class:`BSRoformer` (the JAX
+package has neither).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 from musicfpaugment_torch.afp.audfprint.hash_table import HashTable
 from musicfpaugment_torch.augment.banks import IRBank, NoiseBank
 from musicfpaugment_torch.device import DeviceLike, cudnn_measured, resolve_device
+from musicfpaugment_torch.models.bs_roformer import BSRoformer
 from musicfpaugment_torch.models.demucs import Demucs
 from musicfpaugment_torch.models.htdemucs import HTDemucs
 from musicfpaugment_torch.models.unet import UNet
@@ -428,5 +430,19 @@ def htdemucs_denoiser(model: HTDemucs) -> Callable[[torch.Tensor], torch.Tensor]
     if len(model.sources) != 1 or model.audio_channels != 1:
         raise ValueError(f"an HTDemucs denoiser has one source and one audio channel, not "
                          f"{len(model.sources)} and {model.audio_channels}")
+    model.eval()
+    return _measured_hook(model)
+
+
+# ----------------------------------------------------------- BS-RoFormer
+
+
+def bs_roformer_denoiser(model: BSRoformer) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The waveform hook of ``model`` (one stem and one audio channel: its
+    constructor refuses others): (B, T) -> (B, T) float32, in ``eval()``
+    mode, on the device the model is on (:func:`_measured_hook`); the
+    model's forward holds TF32 off in cuBLAS. Give it to
+    ``AudfprintPeaks(..., denoising=True, denoising_model="bs_roformer",
+    wave_denoiser=...)``."""
     model.eval()
     return _measured_hook(model)
