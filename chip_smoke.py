@@ -43,6 +43,12 @@ and what each checks:
              ``hashes_batch`` gives it, which truncates nothing: one launch
              a call, 0 mismatching rows (and the kernel table's times and
              bound);
+3c. rope_qk - BS-RoFormer's rotary kernel (``csrc/rope_qk.cu``) against
+             ``RotaryEmbedding.rotate`` on q and k of the same card QKV
+             projection at the ``bsroformer384-identify`` cell's two
+             shapes (7,936 time sequences of 146 frames, 18,688 band
+             sequences of 62 bands, 8 heads of 64): one launch a call, 0
+             mismatching elements (and the kernel table's times and bound);
 4. ingest  - 10,000 synthetic 20-30 s tracks, generated on the card, indexed
              by ``create_fp_database`` into a full 2^20 x 100 ``HashTable``
              holding every track; the hashing kernel once an ingest batch;
@@ -536,6 +542,41 @@ def hash_stage_check(dev, shapes: dict) -> dict:
         if mism:
             fail(f"union_hashes at the {name} shape disagrees with its plain version "
                  f"in {mism} of {B} rows")
+    return out
+
+
+def rope_check(dev) -> dict:
+    """The rotary kernel against the plain chain (``rotate`` on the
+    projection's q and k views) on the same card tensors at the
+    BS-RoFormer cell's two shapes: 0 mismatching elements required.
+    ``bound_ms`` is q and k read once and written once, and the two tables
+    read, at the card's byte rate."""
+    from musicfpaugment_torch.models import bs_roformer as BR
+
+    heads, width = 8, BR.ROPE_KERNEL_DIM
+    out = {}
+    for name, S, n in (("time", 7936, 146), ("band", 18688, 62)):
+        rope = BR.RotaryEmbedding(width)
+        gen = torch.Generator(device=dev).manual_seed(n)
+        qkv = torch.randn(S, n, 3 * heads * width, device=dev, generator=gen)
+        view = qkv.view(S, n, 3, heads, width).permute(2, 0, 3, 1, 4)
+        launches = BR.LAUNCHES["rope_qk"]
+        q, k = rope.rotate_qk(qkv, heads)
+        mism = int((q != rope.rotate(view[0])).sum()) + int((k != rope.rotate(view[1])).sum())
+        torch.cuda.synchronize()
+        if BR.LAUNCHES["rope_qk"] != launches + 1:
+            fail(f"rotate_qk did not launch its kernel once at the {name} shape")
+        nbytes = 4 * 2 * (q.numel() + k.numel()) + 4 * 2 * n * width
+        del q, k
+        out[name] = {
+            "S": S, "n": n, "heads": heads, "mismatch": mism,
+            "kernel_ms": gpu_ms(lambda: rope.rotate_qk(qkv, heads), 20),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+            "plain_ms": gpu_ms(lambda: (rope.rotate(view[0]), rope.rotate(view[1])), 20),
+        }
+        if mism:
+            fail(f"rope_qk at the {name} shape disagrees with its plain version "
+                 f"in {mism} elements")
     return out
 
 
@@ -2422,6 +2463,9 @@ def main() -> None:
     })
     emit({"phase": "hash_stage", **at_hash})
     del scale_waves, ing
+
+    # ---- 3c. the rotary kernel vs the plain chain at BS-RoFormer's shapes
+    emit({"phase": "rope_qk", **rope_check(dev)})
 
     # ---- 4. ingest (launch counters zeroed just before the main path): the
     # hashing kernel once a batch

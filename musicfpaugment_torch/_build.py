@@ -40,9 +40,9 @@ _F = ctypes.c_float
 _I64 = ctypes.c_int64
 _U32 = ctypes.c_uint32
 _U64 = ctypes.c_uint64
-# C signatures of csrc/peaks_prune.cu, csrc/dropout_threefry.cu and
-# csrc/union_hashes.cu; each returns an int (a cudaError_t) unless _RESTYPES
-# says otherwise
+# C signatures of csrc/peaks_prune.cu, csrc/dropout_threefry.cu,
+# csrc/union_hashes.cu and csrc/rope_qk.cu; each returns an int (a
+# cudaError_t) unless _RESTYPES says otherwise
 _SIGNATURES = {
     # sgram, out, gauss, B, C, F, a_dec, maxpks, stream
     "mfpa_forward_prune": [_P, _P, _P, _I, _I, _I, _F, _I, _P],
@@ -55,6 +55,8 @@ _SIGNATURES = {
     # shifts (host table), S, B, F, c_max, peak_total, out_len, scratch,
     # times, hashes, n_valid, stream
     "mfpa_union_hashes": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # qkv, cos, sin, out, S, n, heads, stream
+    "mfpa_rope_qk": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 _RESTYPES = {"mfpa_union_hashes_scratch_bytes": _I64}
 

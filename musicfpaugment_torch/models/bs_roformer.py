@@ -27,6 +27,15 @@ Under a profile it records the spans ``bsroformer.stft``,
 product) and ``bsroformer.istft``, and counts the tokens entering the
 Transformer (``bsroformer.tokens``: examples x frames x bands).
 
+The rotary embedding of q and k is one route, ``RotaryEmbedding.rotate_qk``:
+on a CUDA tensor it launches the kernel of ``csrc/rope_qk.cu`` once an
+attention layer (q and k rotated in one pass from the QKV projection's
+output), or raises; on a CPU tensor it takes ``RotaryEmbedding.rotate``, the
+plain version, on each. ``LAUNCHES`` counts the kernel's launches,
+incremented where it is launched and nowhere else; under a profile the
+launch also counts ``bsroformer.rope_launches`` and ``bsroformer.rope_bytes``
+(the bytes it reads and writes).
+
 Departures from the public code, each raising where it is asked for
 (``UNSUPPORTED``): one audio channel (``stereo=True`` folds two channels
 into the bands), one stem, no linear-attention layers
@@ -57,6 +66,10 @@ DEFAULT_FREQS_PER_BANDS = ((2,) * 24 + (4,) * 12 + (12,) * 8 + (24,) * 8 + (48,)
 UNSUPPORTED = {"stereo": False, "num_stems": 1, "linear_transformer_depth": 0,
                "attn_dropout": 0.0, "ff_dropout": 0.0, "stft_normalized": False}
 ROPE_THETA = 10000.0
+# the head width the rotary kernel takes
+ROPE_KERNEL_DIM = 64
+
+LAUNCHES: Dict[str, int] = {"rope_qk": 0}
 
 
 class RMSNorm(nn.Module):
@@ -99,11 +112,61 @@ class RotaryEmbedding(nn.Module):
         cos, sin = self.cos_sin(x.shape[-2], x)
         return x * cos + rotate_half(x) * sin
 
+    def rotate_qk(self, qkv: torch.Tensor, heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The (S, n, 3 x heads x dim) output of a QKV projection -> its
+        queries and keys, each (S, heads, n, dim), rotated by their
+        position: the CUDA kernel on a CUDA tensor, ``rotate`` on each on a
+        CPU one."""
+        S, n, _ = qkv.shape
+        if qkv.is_cuda:
+            return rope_qk_cuda(qkv, *self.cos_sin(n, qkv), heads)
+        q, k, _ = qkv.view(S, n, 3, heads, -1).permute(2, 0, 3, 1, 4)
+        return self.rotate(q), self.rotate(k)
+
 
 def rotate_half(x: torch.Tensor) -> torch.Tensor:
     """(x0, x1) -> (-x1, x0) on each interleaved pair of the last axis."""
     x1, x2 = x.unflatten(-1, (-1, 2)).unbind(-1)
     return torch.stack((-x2, x1), dim=-1).flatten(-2)
+
+
+def rope_qk_cuda(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                 heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``RotaryEmbedding.rotate`` of the queries and of the keys of a QKV
+    projection's (S, n, 3 x heads x 64) float32 output, contiguous on the
+    card, by the (n, 64) ``cos`` and ``sin`` tables, in one launch of
+    ``csrc/rope_qk.cu``: (q, k), each (S, heads, n, 64) contiguous, bit for
+    bit the plain version's. Raises on anything the kernel does not take."""
+    from musicfpaugment_torch import _build
+
+    if not qkv.is_cuda or qkv.dtype != torch.float32 or qkv.dim() != 3:
+        raise ValueError(f"the rotary kernel takes a 3-D float32 CUDA tensor, not a "
+                         f"{qkv.dim()}-D {qkv.dtype} one on {qkv.device}")
+    S, n, width = qkv.shape
+    if width != 3 * heads * ROPE_KERNEL_DIM:
+        raise ValueError(f"the rotary kernel takes heads of width {ROPE_KERNEL_DIM}: "
+                         f"{width} is not 3 x {heads} x {ROPE_KERNEL_DIM}")
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError("the rotary kernel takes the projection's output contiguous "
+                         "and 16-byte aligned")
+    for table in (cos, sin):
+        if (table.device != qkv.device or table.dtype != torch.float32
+                or tuple(table.shape) != (n, ROPE_KERNEL_DIM) or not table.is_contiguous()
+                or table.data_ptr() % 16):
+            raise ValueError(f"the rotary kernel takes ({n}, {ROPE_KERNEL_DIM}) float32 "
+                             f"tables, contiguous and aligned, on the projection's device")
+    out = torch.empty((2, S, heads, n, ROPE_KERNEL_DIM), dtype=qkv.dtype, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        status = _build.library().mfpa_rope_qk(
+            qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(), S, n, heads,
+            torch.cuda.current_stream(qkv.device).cuda_stream)
+    if status != 0:
+        raise RuntimeError(f"rope_qk kernel launch failed: cudaError {status}")
+    LAUNCHES["rope_qk"] += 1
+    count("bsroformer.rope_launches", 1)
+    # q and k read once and written once, and the two tables read
+    count("bsroformer.rope_bytes", 4 * out.numel() * 2 + 4 * 2 * n * ROPE_KERNEL_DIM)
+    return out[0], out[1]
 
 
 class Attention(nn.Module):
@@ -119,8 +182,9 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(S, n, dim) -> (S, n, dim): ``S`` sequences of ``n`` tokens."""
         S, n, _ = x.shape
-        q, k, v = self.to_qkv(self.norm(x)).view(S, n, 3, self.heads, -1).permute(2, 0, 3, 1, 4)
-        q, k = self.rotary_embed.rotate(q), self.rotary_embed.rotate(k)
+        qkv = self.to_qkv(self.norm(x))
+        q, k = self.rotary_embed.rotate_qk(qkv, self.heads)
+        v = qkv.view(S, n, 3, self.heads, -1)[:, :, 2].transpose(1, 2)
         out = F.scaled_dot_product_attention(q, k, v)
         return self.to_out(out.transpose(1, 2).reshape(S, n, -1))
 
